@@ -17,12 +17,30 @@ Phases, one JSON line each:
    ``dac(growth=4)`` at the large state's width (row in device memory)
    with lanes that grow and shrink;
 3. the main path: the six dataset families as ``[16, 200000]`` traces
-   through ``Engine(device="cuda").replay`` for dac, ac, climb and fifo at
+   through ``Engine(device="cuda").replay`` for dac, ac and climb at
    ``K = k_for(footprint, "L")`` (families of one K share a call: 64
-   lanes at K=819, 32 at K=1638); miss ratios, MRR against FIFO, Mreq/s,
-   DAC's active size ``k``;
+   lanes at K=819, 32 at K=1638); miss ratios, Mreq/s, DAC's active size
+   ``k``; MRR against FIFO over the first ``FIFO_T`` requests, which all
+   four policies replay (FIFO only those: it is a host-bound Python loop);
 4. large state: zipf over 2^20 ids, K = 104857, ``dac(growth=4)`` on 128
-   lanes for T = 100000 through ``Engine.replay_stream``.
+   lanes for T = 100000 through ``Engine.replay_stream``;
+5. attention kernels: B2 (``flash_attention``) and B3 (``decode_attention``)
+   against their plain versions in f32 and bf16 at deepseek-7b's shapes
+   (B2 ``[8, 2048, 32, 128]`` causal; B3 at S = 2112 and at S = 512 with a
+   sparse ``valid``), gemma2-27b's (GQA 32/16, window 4096, softcap 50,
+   S = 8192, B = 1) and prime lengths; B3's mass bit for bit across two
+   launches and its top slot against the plain one's; each kernel timed
+   at the serve path's shapes beside its bound, its plain version and (B2)
+   ``scaled_dot_product_attention``;
+6. serve: deepseek-7b at full width and depth (30 layers, bf16, seeded
+   random weights) through ``prefill`` + 64 greedy ``decode_step`` s on
+   B = 8 prompts of 2048 tokens, unbounded and with the DAC-bounded pool
+   (budget 512); B2 launches 30 times per prefill, B3 30 times per step;
+   two more steps of each regime and the unbounded prefill run under
+   ``torch.profiler`` (device-busy time, idle share, launches, top kernels);
+7. serve vs plain: the same model at 2 layers in f32, prefill + 8
+   teacher-forced steps with the kernels and with their plain versions, in
+   both regimes: logits within 1e-4 and DAC's control state equal.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -40,6 +58,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_SMS = 132
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, data sheet
+SEED = 20251121
+# kernel vs plain, as tests/test_kernels.py states them: in f32 the two sum
+# in different orders (online softmax against a full one); in bf16 the
+# output is rounded to bf16 (step 2^-8 relative).  B3's mass is f32 on both
+# sides from the same inputs, so it is held at the f32 tolerance in both.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+MASS_TOL = 2e-5
+# serve vs plain, f32 logits: kernels and plain versions differ in
+# attention's summation order only (~1e-6 relative); two layers and the
+# 4096-wide head keep that near 1e-5 on logits of magnitude ~1-5
+SERVE_LOGIT_TOL = 1e-4
 # int32 ALU rate: 64 INT32 lanes per SM (Hopper architecture whitepaper)
 # x 132 SMs x 1.98 GHz boost clock (H100 SXM data sheet)
 H100_INT32_OPS_PER_S = 64 * H100_SMS * 1.98e9
@@ -370,6 +401,13 @@ def main_groups():
     return groups
 
 
+# FIFO is plain torch, a Python loop over T (~270 us a step, host bound):
+# it replays the first FIFO_T requests of each trace, and MRR compares
+# every policy over that same prefix; the rank policies also replay the
+# whole trace, which is the main path's timed run
+FIFO_T = 50_000
+
+
 def phase_main(dev, seeds=16, T=200_000):
     import numpy as np
     import torch
@@ -379,7 +417,7 @@ def phase_main(dev, seeds=16, T=200_000):
     from repro_torch.kernels import policy_step as ps
 
     engine = Engine(device=dev)
-    reqs, calls, rank_s = {}, 0, 0.0
+    reqs, calls, full_calls, rank_s = {}, 0, 0, 0.0
     for K, fams in main_groups().items():
         keys, sizes, costs = [], [], []
         for fam in fams:
@@ -388,48 +426,57 @@ def phase_main(dev, seeds=16, T=200_000):
             keys.append(k)
             sizes.append(table[k])
             costs.append(fetch_costs(table)[k])
-        reqs[K] = Request.of(np.concatenate(keys), np.concatenate(sizes),
-                             np.concatenate(costs), device=dev)
+        cols = [np.concatenate(x) for x in (keys, sizes, costs)]
+        for T_w in (T, FIFO_T):
+            reqs[K, T_w] = Request.of(*(np.ascontiguousarray(x[:, :T_w])
+                                        for x in cols), device=dev)
     ps.LAUNCHES = 0
     for K, fams in main_groups().items():
         B = seeds * len(fams)
         rows = {fam: {"family": fam, "K": K, "lanes": seeds}
                 for fam in fams}
         for spec in ("dac", "ac", "climb", "fifo"):
-            res, s = host_s(lambda: engine.replay(spec, reqs[K], K,
-                                                  **main_mode(spec)))
-            m = res.metrics
-            if not (torch.all(m.requests == T) and torch.all(m.hits <= T)
-                    and np.isfinite(res.byte_miss_ratio).all()
-                    and np.isfinite(res.penalty_ratio).all()):
-                raise AssertionError(f"K={K} {spec}: bad metrics {m}")
-            for j, fam in enumerate(fams):
-                lanes = slice(j * seeds, (j + 1) * seeds)
-                rows[fam][spec] = {
-                    "miss_ratio": float(res.miss_ratio[lanes].mean()),
-                    "byte_miss_ratio":
-                        float(res.byte_miss_ratio[lanes].mean())}
-                if res.obs is not None:               # DAC's active size
-                    k = res.obs["k"][lanes].double()
-                    rows[fam][spec].update(
-                        mean_k=float(k.mean()), final_k=float(k[:, -1].mean()),
-                        min_k=int(k.min()), max_k=int(k.max()))
-            emit({"phase": "main_path_call", "K": K, "policy": spec,
-                  "lanes": B, "T": T, "s": s, "Mreq_s": B * T / s / 1e6})
-            if spec != "fifo":
-                calls += 1
-                rank_s += s
+            windows = ((FIFO_T,) if spec == "fifo" else (T, FIFO_T))
+            for T_w in windows:
+                res, s = host_s(lambda: engine.replay(spec, reqs[K, T_w], K,
+                                                      **main_mode(spec)))
+                m = res.metrics
+                if not (torch.all(m.requests == T_w)
+                        and torch.all(m.hits <= T_w)
+                        and np.isfinite(res.byte_miss_ratio).all()
+                        and np.isfinite(res.penalty_ratio).all()):
+                    raise AssertionError(f"K={K} {spec}: bad metrics {m}")
+                window = "full" if T_w == T else "prefix"
+                for j, fam in enumerate(fams):
+                    lanes = slice(j * seeds, (j + 1) * seeds)
+                    row = {"miss_ratio": float(res.miss_ratio[lanes].mean()),
+                           "byte_miss_ratio":
+                               float(res.byte_miss_ratio[lanes].mean())}
+                    if res.obs is not None:           # DAC's active size
+                        k = res.obs["k"][lanes].double()
+                        row.update(mean_k=float(k.mean()),
+                                   final_k=float(k[:, -1].mean()),
+                                   min_k=int(k.min()), max_k=int(k.max()))
+                    rows[fam].setdefault(spec, {})[window] = row
+                emit({"phase": "main_path_call", "K": K, "policy": spec,
+                      "lanes": B, "T": T_w, "s": s,
+                      "Mreq_s": B * T_w / s / 1e6})
+                if spec != "fifo":
+                    calls += 1
+                    if T_w == T:
+                        full_calls += 1
+                        rank_s += s
         for row in rows.values():
             for spec in ("dac", "ac"):
-                row[f"mrr_{spec}"] = mrr(row[spec]["miss_ratio"],
-                                         row["fifo"]["miss_ratio"])
-            emit({"phase": "main_path", **row})
+                row[f"mrr_{spec}"] = mrr(row[spec]["prefix"]["miss_ratio"],
+                                         row["fifo"]["prefix"]["miss_ratio"])
+            emit({"phase": "main_path", "mrr_T": FIFO_T, **row})
     launches = ps.LAUNCHES
     if launches != calls:
         raise AssertionError(
             f"policy_replay launched {launches} times on the main path; "
             f"expected one per rank-policy replay ({calls})")
-    return launches, rank_s * 1e3 / launches
+    return launches, rank_s * 1e3 / full_calls
 
 
 def phase_large(dev):
@@ -457,6 +504,425 @@ def phase_large(dev):
             "mean_k": float(np.mean(res.obs["k"])), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: attention kernels B2 and B3 against their plain versions
+# ---------------------------------------------------------------------------
+
+def close_err(got, want, tol, what):
+    """Largest absolute difference; raises above ``tol``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise Mismatch(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                       f"{want.dtype}{tuple(want.shape)}")
+    d = (got.double() - want.double()).abs().max().item()
+    if not d <= tol:
+        raise Mismatch(f"{what}: max abs err {d} > {tol}")
+    return d
+
+
+def randn(gen, shape, dtype, dev):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+# name, B, S, H, Hkv, D, Dv, window, softcap
+FLASH_SHAPES = [
+    ("deepseek-7b", 8, 2048, 32, 32, 128, 128, None, 0.0),
+    ("gemma2-27b", 1, 8192, 32, 16, 128, 128, 4096, 50.0),
+    ("prime", 2, 1021, 8, 2, 96, 64, 300, 30.0),
+]
+# name, B, S, H, Hkv, D, Dv, softcap, valid pattern
+DECODE_SHAPES = [
+    ("deepseek-7b unbounded", 8, 2112, 32, 32, 128, 128, 0.0, "prefix"),
+    ("deepseek-7b bounded", 8, 512, 32, 32, 128, 128, 0.0, "sparse"),
+    ("gemma2-27b window", 1, 8192, 32, 16, 128, 128, 50.0, "window"),
+    ("prime", 3, 1021, 8, 2, 96, 64, 30.0, "sparse+empty"),
+]
+
+
+def decode_valid(pattern, B, S, gen, dev):
+    """valid [B, S]: ``prefix`` as the unbounded serve step builds it
+    (slots <= pos, pos = S - 64 + 8b); ``sparse`` 70% at random; ``window``
+    slots > pos - 4096 at pos = S - 1; ``+empty`` clears the last row."""
+    import torch
+    ar = torch.arange(S, device=dev)[None]
+    if pattern == "prefix":
+        pos = S - 64 + 8 * torch.arange(B, device=dev)[:, None]
+        return ar <= pos
+    if pattern == "window":
+        return (ar > S - 1 - 4096).expand(B, S).contiguous()
+    valid = torch.rand((B, S), generator=gen, device=dev) < 0.7
+    if pattern.endswith("+empty"):
+        valid[-1] = False
+    return valid
+
+
+def flash_bound(B, S, H, Hkv, D, Dv, dtype, window=None):
+    """Least time (ms) of causal attention on an H100: 2 (D + Dv) flops per
+    (q, k) pair the masks keep, at the tensor-core bf16 rate (the f32 rate
+    for f32), against q, k, v, o read or written once."""
+    import torch
+    qpos = torch.arange(S, dtype=torch.float64)
+    keep = qpos + 1 if not window else torch.clamp(qpos + 1, max=window)
+    pairs = float(keep.sum()) * B * H
+    flops = 2 * (D + Dv) * pairs
+    size = 2 if dtype == torch.bfloat16 else 4
+    bytes_ = size * B * S * (H * D + Hkv * D + Hkv * Dv + H * Dv)
+    rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = flops / rate, bytes_ / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def decode_bound(q, k, v, valid):
+    """Least time (ms) of one decode-attention call on an H100: K and V of
+    the slots this ``valid`` keeps (all of them in a row with none), q and
+    ``valid`` read once, o and mass written once, over the memory rate."""
+    B, S = valid.shape
+    live = valid.sum(1)
+    slots = int(live.where(live > 0, S).sum())
+    row = (k.shape[2] * k.shape[3] + v.shape[2] * v.shape[3]) * \
+        k.element_size()
+    bytes_ = (slots * row + q.numel() * q.element_size() + B * S
+              + q.numel() // q.shape[2] * v.shape[3] * q.element_size()
+              + 4 * B * S)
+    return bytes_ / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_attention(dev):
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, err = [], {"flash": 0.0, "decode": 0.0}
+    timed = {}
+    for name, B, S, H, Hkv, D, Dv, win, cap in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, S, H, D), dtype, dev)
+            k = randn(gen, (B, S, Hkv, D), dtype, dev)
+            v = randn(gen, (B, S, Hkv, Dv), dtype, dev)
+            kw = dict(window=win, softcap=cap)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.attention_dense(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+            e = close_err(got.float(), want.float(), tol,
+                          f"B2 {name} {dtype}")
+            err["flash"] = max(err["flash"], e)
+            rows.append({"kernel": "B2", "case": name, "dtype": str(dtype),
+                         "shape": [B, S, H, Hkv, D, Dv], "window": win,
+                         "softcap": cap, "max_abs_err": e, "tol": tol})
+            del got, want
+            if name == "deepseek-7b" and dtype == torch.bfloat16:
+                # the serve path's shape: kernel, plain, SDPA (timed only)
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                b_ms, b_by, flops = flash_bound(B, S, H, Hkv, D, Dv, dtype)
+                timed["flash"] = {
+                    "shape": [B, S, H, D], "dtype": "bfloat16",
+                    "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                    "plain_ms": cuda_ms(
+                        lambda: fa.attention_dense(q, k, v, **kw), reps=1),
+                    "library_ms": cuda_ms(
+                        lambda: sdpa(qt, kt, vt, is_causal=True)),
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
+                timed["flash"]["tflops"] = (
+                    flops / timed["flash"]["ms"] / 1e9)
+                del qt, kt, vt
+            del q, k, v
+    torch.cuda.empty_cache()
+
+    near_ties = 0
+    for name, B, S, H, Hkv, D, Dv, cap, pattern in DECODE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, H, D), dtype, dev)
+            k = randn(gen, (B, S, Hkv, D), dtype, dev)
+            v = randn(gen, (B, S, Hkv, Dv), dtype, dev)
+            valid = decode_valid(pattern, B, S, gen, dev)
+            o, mass = da.decode_attention(q, k, v, valid, softcap=cap)
+            o2, mass2 = da.decode_attention(q, k, v, valid, softcap=cap)
+            po, pm = da.decode_attention_plain(q, k, v, valid, softcap=cap)
+            torch.cuda.synchronize()
+            what = f"B3 {name} {dtype}"
+            if not (torch.equal(mass, mass2) and torch.equal(o, o2)):
+                raise Mismatch(f"{what}: two launches differ")
+            tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+            e_o = close_err(o.float(), po.float(), tol, what + " o")
+            e_m = close_err(mass, pm, MASS_TOL, what + " mass")
+            err["decode"] = max(err["decode"], e_o, e_m)
+            masked = pm.masked_fill(~valid, float("-inf"))
+            top2 = masked.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1] > MASS_TOL) & valid.any(-1)
+            got_top = mass.masked_fill(~valid, float("-inf")).argmax(-1)
+            if not torch.equal(got_top[clear], masked.argmax(-1)[clear]):
+                raise Mismatch(f"{what}: top slot differs from the plain "
+                               f"one's where the margin exceeds {MASS_TOL}")
+            ties = int((~clear & valid.any(-1)).sum())
+            near_ties += ties
+            rows.append({"kernel": "B3", "case": name, "dtype": str(dtype),
+                         "shape": [B, S, H, Hkv, D, Dv], "softcap": cap,
+                         "valid": pattern,
+                         "valid_slots": int(valid.sum()),
+                         "max_abs_err_o": e_o, "max_abs_err_mass": e_m,
+                         "tol": tol, "mass_tol": MASS_TOL,
+                         "mass_bit_identical_run_to_run": True,
+                         "rows_top_slot_checked": int(clear.sum()),
+                         "rows_within_margin": ties})
+            if name.startswith("deepseek-7b") and dtype == torch.bfloat16:
+                if pattern == "sparse":          # as after a bounded fill
+                    valid = torch.ones_like(valid)
+                b_ms, b_by = decode_bound(q, k, v, valid)
+                timed[name] = {
+                    "shape": [B, S, H, D], "dtype": "bfloat16",
+                    "valid_slots": int(valid.sum()),
+                    "ms": cuda_ms(lambda: da.decode_attention(
+                        q, k, v, valid, softcap=cap), reps=20),
+                    "plain_ms": cuda_ms(lambda: da.decode_attention_plain(
+                        q, k, v, valid, softcap=cap), reps=5),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            del q, k, v, o, o2, po
+    torch.cuda.empty_cache()
+    return ({"phase": "attention_kernels", "cases": rows,
+             "b3_rows_within_margin": near_ties, "timed": timed},
+            err, timed)
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the serve path
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_S, SERVE_GEN, SERVE_BUDGET = 8, 2048, 64, 512
+
+
+def prompt_tokens(cfg, B, S, dev, n=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + n)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+
+
+def profile_ms(fn, n=1):
+    """Run ``fn`` ``n`` times under ``torch.profiler``: host ms per call,
+    device-busy ms per call (sum of kernel times; one stream, so kernels do
+    not overlap), the idle share, kernel launches per call and the kernels
+    that take most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = (us / 1e3 / n, e.count / n)
+    busy = sum(ms for ms, _ in dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"host_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "kernel_launches": sum(c for _, c in dev.values()),
+            "top_kernels_ms": {k[:60]: ms for k, (ms, _) in top}}
+
+
+def kv_bytes(state):
+    return sum(st[n].numel() * st[n].element_size()
+               for st in state["layers"] for n in ("k", "v"))
+
+
+def phase_serve(dev):
+    """deepseek-7b at full width and depth: prefill + greedy decode, once
+    unbounded and once in the DAC-bounded pool."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serving import decode_step, prefill
+
+    cfg = ARCHS["deepseek-7b"]
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, init_s = host_s(lambda: init_params(cfg, gen, device=dev))
+    tokens = prompt_tokens(cfg, SERVE_B, SERVE_S, dev)
+    max_len = SERVE_S + SERVE_GEN + 2          # two traced steps at the end
+    out, seqs = {}, {}
+    for regime, budget in (("unbounded", 0), ("bounded", SERVE_BUDGET)):
+        fa.LAUNCHES = da.LAUNCHES = 0
+        (state, logits), pre_s = host_s(lambda: prefill(
+            params, cfg, tokens=tokens, max_len=max_len, budget=budget))
+        b2 = fa.LAUNCHES
+        if b2 != L:
+            raise AssertionError(f"{regime} prefill launched B2 {b2} times; "
+                                 f"expected one per layer ({L})")
+        toks = [logits.argmax(-1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GEN):
+            state, logits = decode_step(params, cfg, state, token=toks[-1],
+                                        eps=0.5, k_min=16)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        b3 = da.LAUNCHES
+        if b3 != L * SERVE_GEN:
+            raise AssertionError(f"{regime} decode launched B3 {b3} times; "
+                                 f"expected {L} per step ({L * SERVE_GEN})")
+        if not (logits.shape == (SERVE_B, cfg.vocab)
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{regime}: bad logits {logits.shape}")
+        seqs[regime] = torch.stack(toks, 1).cpu()
+        row = {"prefill_s": pre_s, "decode_s": dec_s,
+               "decode_tok_s": SERVE_B * SERVE_GEN / dec_s,
+               "ms_per_step": dec_s * 1e3 / SERVE_GEN,
+               "b2_launches": b2, "b3_launches": b3,
+               "kv_bytes_allocated": kv_bytes(state),
+               "final_pos": int(state["pos"][0])}
+        holder = {"state": state, "tok": toks[-1]}
+
+        def one_step():
+            holder["state"], lg = decode_step(params, cfg, holder["state"],
+                                              token=holder["tok"], eps=0.5,
+                                              k_min=16)
+            holder["tok"] = lg.argmax(-1)
+        # two more steps, traced (positions past the timed run's end stay
+        # inside the unbounded buffers: max_len has room for them)
+        row["decode_step_profile"] = profile_ms(one_step, n=2)
+        state = holder["state"]
+        if budget:
+            ks = torch.stack([st["ctrl"]["k_active"]
+                              for st in state["layers"]]).cpu().numpy()
+            live = torch.stack([st["ctrl"]["length"]
+                                for st in state["layers"]]).cpu().numpy()
+            row.update(k_active_min=int(ks.min()),
+                       k_active_median=float(np.median(ks)),
+                       k_active_max=int(ks.max()),
+                       live_slots_per_layer_seq=[int(live.min()),
+                                                 int(live.max())])
+            row["kv_bytes_live"] = int(
+                live.sum() * 2 * cfg.n_kv_heads * cfg.head_dim * 2)
+        else:
+            row["kv_bytes_live"] = int(
+                L * SERVE_B * row["final_pos"] * 2 * cfg.n_kv_heads
+                * cfg.head_dim * 2)
+        out[regime] = row
+        del state, logits, holder
+        torch.cuda.empty_cache()
+        if not budget:   # the bounded fill's ~80k tiny launches trace slowly
+            row["prefill_profile"] = profile_ms(lambda: prefill(
+                params, cfg, tokens=tokens, max_len=max_len))
+            torch.cuda.empty_cache()
+    same = (seqs["bounded"] == seqs["unbounded"])
+    first_diff = [int(np.argmin(r)) if not r.all() else None
+                  for r in same.numpy()]
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "serve", "arch": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "params": param_count(cfg),
+            "dtype": cfg.param_dtype, "batch": SERVE_B,
+            "prompt": SERVE_S, "gen": SERVE_GEN, "budget": SERVE_BUDGET,
+            "init_s": init_s, **out,
+            "greedy_agreement": float(same.float().mean()),
+            "first_disagreement_step": first_diff}
+
+
+def phase_serve_vs_plain(dev):
+    """The serve path with the kernels against the same path with their
+    plain versions, at full width and 2 layers in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving import serve_step as ss
+
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=2,
+                              param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    steps = 8
+    toks = prompt_tokens(cfg, SERVE_B, SERVE_S + steps, dev, n=1)
+    margins = []                 # plain run: top-2 mass margin per call
+    attend = ss.attend_decode
+
+    def recording(q, k, v, valid, **kw):
+        o, mass = attend(q, k, v, valid, **kw)
+        if kw.get("impl") == "plain":
+            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+            margins[-1].append(float((top2[:, 0] - top2[:, 1]).min()))
+        return o, mass
+
+    out = {}
+    ss.attend_decode = recording
+    try:
+        for regime, budget in (("unbounded", 0), ("bounded", SERVE_BUDGET)):
+            runs = {}
+            for impl in ("kernel", "plain"):
+                fa.LAUNCHES = da.LAUNCHES = 0
+                margins.clear()
+                state, last = prefill(params, cfg, tokens=toks[:, :SERVE_S],
+                                      max_len=SERVE_S + steps, budget=budget,
+                                      impl=impl)
+                logs, ctrls = [last], []
+                for t in range(SERVE_S, SERVE_S + steps):
+                    margins.append([])
+                    state, lg = decode_step(params, cfg, state,
+                                            token=toks[:, t], impl=impl)
+                    logs.append(lg)
+                    if budget:
+                        ctrls.append([{k: x.clone() for k, x in
+                                       st["ctrl"].items()}
+                                      for st in state["layers"]])
+                want = (cfg.n_layers, cfg.n_layers * steps)
+                got = (fa.LAUNCHES, da.LAUNCHES)
+                if got != (want if impl == "kernel" else (0, 0)):
+                    raise AssertionError(f"{regime} {impl}: launches {got}")
+                runs[impl] = (logs, ctrls, [min(m) for m in margins]
+                              if impl == "plain" else [])
+            (klogs, kctrl, _), (plogs, pctrl, pmarg) = (runs["kernel"],
+                                                        runs["plain"])
+            errs = [(a - b).abs().max().item() for a, b in zip(klogs, plogs)]
+            ctrl_diff = [t for t, (a, b) in enumerate(zip(kctrl, pctrl))
+                         if any(not torch.equal(x[n], y[n])
+                                for x, y in zip(a, b) for n in x)]
+            near = [t for t in ctrl_diff if pmarg[t] <= MASS_TOL]
+            row = {"logits_max_abs_err": max(errs),
+                   "per_step_err": errs, "tol": SERVE_LOGIT_TOL}
+            if budget:
+                row.update(ctrl_steps_differing=ctrl_diff,
+                           near_tie_steps=near,
+                           min_top2_margin=float(np.min(pmarg)))
+            out[regime] = row
+            if ctrl_diff and ctrl_diff[0] not in near:
+                raise Mismatch(f"serve vs plain {regime}: ctrl differs at "
+                               f"step {ctrl_diff[0]} with a top-2 margin "
+                               f"{pmarg[ctrl_diff[0]]} > {MASS_TOL}")
+            first = ctrl_diff[0] if ctrl_diff else steps
+            if max(errs[:first + 1]) > SERVE_LOGIT_TOL:
+                raise Mismatch(f"serve vs plain {regime}: logits differ by "
+                               f"{max(errs[:first + 1])} > "
+                               f"{SERVE_LOGIT_TOL}")
+    finally:
+        ss.attend_decode = attend
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "serve_vs_plain", "arch": cfg.name, "layers": 2,
+            "dtype": "float32", "batch": SERVE_B, "prompt": SERVE_S,
+            "steps": steps, "budget": SERVE_BUDGET, **out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -469,11 +935,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    # f32 products in full f32 for the f32 comparisons (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    reports = _build.build(["policy_step"])
+    reports = _build.build(["policy_step", "flash_attention",
+                            "decode_attention"])
     emit({"phase": "device_build", "device": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0,
@@ -491,7 +961,13 @@ def main() -> int:
     emit({"phase": "main_path_launches", "policy_replay": launches,
           "ms_per_launch": main_ms})
     emit(phase_large(dev))
+    res, attn_err, attn = phase_attention(dev)
+    emit(res)
+    serve = phase_serve(dev)
+    emit(serve)
+    emit(phase_serve_vs_plain(dev))
 
+    flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
         "name": "policy_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
@@ -499,6 +975,25 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:107",
+        "launches": serve["unbounded"]["b2_launches"]
+        + serve["bounded"]["b2_launches"],
+        "max_abs_err": attn_err["flash"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:136",
+        "launches": serve["unbounded"]["b3_launches"]
+        + serve["bounded"]["b3_launches"],
+        "max_abs_err": attn_err["decode"],
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        # no single PyTorch call gives both o and the per-slot mass
         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

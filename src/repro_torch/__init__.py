@@ -14,8 +14,16 @@ Conventions:
   runs its plain PyTorch version, on a CUDA tensor it launches the kernel;
 * trace data comes from numpy ``Generator`` s with explicit seeds.
 
-The slice ported so far is the paper's trace replay: ``make_policy`` ->
-``Engine.replay`` -> miss ratios -> ``mrr`` against FIFO, for Climb,
-AdaptiveClimb and DynamicAdaptiveClimb (one hand-written Hopper kernel,
-``kernels/csrc/policy_step.cu``) and FIFO/LRU (plain torch).
+Ported so far:
+
+* the paper's trace replay: ``make_policy`` -> ``Engine.replay`` -> miss
+  ratios -> ``mrr`` against FIFO, for Climb, AdaptiveClimb and
+  DynamicAdaptiveClimb (hand-written Hopper kernel
+  ``kernels/csrc/policy_step.cu``) and FIFO/LRU (plain torch);
+* serving of the dense attention LMs (``configs``, ``models``,
+  ``serving``, ``launch.serve``): prefill and decode with an unbounded KV
+  cache or the DAC-bounded slot pool, attention on the hand-written
+  kernels ``kernels/csrc/flash_attention.cu`` (prefill) and
+  ``kernels/csrc/decode_attention.cu`` (decode, with the per-slot mass
+  that is DAC's hit signal).
 """

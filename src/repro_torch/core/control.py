@@ -67,7 +67,8 @@ def resize_update(jump, jump2, k, *, eps, k_min, kmax, cap=None):
     Returns ``(k_new, jump, jump2, grow, shrink)``."""
     half = _half(k)
     jump2 = torch.where(jump == 0, 0, jump2)
-    eps32 = torch.tensor(eps, dtype=torch.float32, device=k.device)
+    # eps rounded to float32 on the device (a fill, not a host-to-device copy)
+    eps32 = torch.full((), eps, dtype=torch.float32, device=k.device)
     shrink_thresh = -torch.ceil(eps32 * half.to(torch.float32)).to(torch.int32)
     if cap is None:
         k_grow = 2 * k

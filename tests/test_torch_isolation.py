@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither ``jax`` nor the reference
-package, and its copies of the reference's numpy-only code (trace
-generators, ``k_for``, the spec parser) equal the originals.
+package, and its copies of the reference's plain code (trace generators,
+``k_for``, the spec parser, the architecture configs and shape cells)
+equal the originals.
 """
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -13,9 +15,11 @@ pytest.importorskip("jax")
 
 import numpy as np  # noqa: E402
 
+from repro import configs as ref_configs  # noqa: E402
 from repro import specs as ref_specs  # noqa: E402
 from repro.bench.scenario import k_for as ref_k_for  # noqa: E402
 from repro.data import traces as rt  # noqa: E402
+from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch import specs as port_specs  # noqa: E402
 from repro_torch.data import traces as pt  # noqa: E402
 
@@ -108,3 +112,24 @@ def test_spec_parser_copy_equals_reference():
     for bad in ("growth=2.5", "nope=1"):
         with pytest.raises(ValueError):
             port_specs.build_kwargs("policy", "x", fn, bad)
+
+
+@pytest.mark.parametrize("table", ["ARCHS", "SMOKE_ARCHS"])
+def test_config_copies_equal_reference(table):
+    ref, port = getattr(ref_configs, table), getattr(port_configs, table)
+    assert list(port) == list(ref)
+    for name, cfg in ref.items():
+        assert dataclasses.asdict(port[name]) == dataclasses.asdict(cfg), name
+        assert port[name].head_dim == cfg.head_dim
+        assert port[name].n_periods == cfg.n_periods
+        assert str(port[name].dtype).removeprefix("torch.") == \
+            str(cfg.dtype)
+        assert port_configs.get_arch(name, smoke=table == "SMOKE_ARCHS") \
+            == port[name]
+
+
+def test_shape_cells_equal_reference():
+    assert {k: dataclasses.asdict(v) for k, v in port_configs.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
+    with pytest.raises(KeyError):
+        port_configs.get_arch("no-such-arch")
