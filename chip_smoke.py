@@ -10,25 +10,37 @@ Phases, one JSON line each:
 2. kernel vs plain, bit for bit, on the card: ``policy_step_batched``
    against the plain step for the four plans (Climb, AdaptiveClimb, DAC,
    DAC with a cap) over K in {1, 7, 127, 128, 129, 1000, 419428} and empty,
-   mid-fill and full rows; ``policy_replay`` against the plain step loop
-   for climb, ac and dac with ``collect_info`` on and off and ``observe``
-   on at B=8, T=4096; for each capacity group of the main path at its lane
-   count and in its mode (dac at K=819 is the timed case); and for
-   ``dac(growth=4)`` at the large state's width (row in device memory)
-   with lanes that grow and shrink;
+   mid-fill and full rows, and at the widths on both sides of each of
+   B1's size dispatches (one warp per lane, one block per lane with the
+   row in shared memory, in device memory), which ``b1_edges`` reads from
+   the kernel's own dispatch;
+   ``policy_replay`` against the plain step loop for climb, ac and dac
+   with ``collect_info`` on and off and ``observe`` on at B=8, T=4096; for
+   each capacity group of the main path at its lane count and in its mode
+   (dac at K=819 is the timed case); for ``dac(growth=4)`` at the large
+   state's width (row in device memory) with lanes that grow and shrink;
+   and for ``dac(growth=4)`` and climb on both sides of each dispatch;
 3. the main path: the six dataset families as ``[16, 200000]`` traces
    through ``Engine(device="cuda").replay`` for dac, ac and climb at
    ``K = k_for(footprint, "L")`` (families of one K share a call: 64
    lanes at K=819, 32 at K=1638); miss ratios, Mreq/s, DAC's active size
    ``k``; MRR against FIFO over the first ``FIFO_T`` requests, which all
    four policies replay (FIFO only those: it is a host-bound Python loop);
+   B1's mean ms per whole-trace launch beside the mean bound of those
+   launches (each launch's ranks counted to the live width, from a rerun
+   of its inputs with per-step outputs);
 4. large state: zipf over 2^20 ids, K = 104857, ``dac(growth=4)`` on 128
    lanes for T = 100000 through ``Engine.replay_stream``;
 5. attention kernels: B2 (``flash_attention``) and B3 (``decode_attention``)
    against their plain versions in f32 and bf16 at deepseek-7b's shapes
    (B2 ``[8, 2048, 32, 128]`` causal; B3 at S = 2112 and at S = 512 with a
    sparse ``valid``), gemma2-27b's (GQA 32/16, window 4096, softcap 50,
-   S = 8192, B = 1) and prime lengths; B3's mass bit for bit across two
+   S = 8192, B = 1) and prime lengths; B2 also at ``FLASH_EDGE_SHAPES``
+   (D = Dv = 256, D and Dv not multiples of 16, GQA 8, S = 17, D != Dv,
+   non-causal with Sq != Sk); B2 in bf16 also element by element on
+   bf16's rounding scale (``BF16_C``) against the plain version in f32,
+   which rejects the output of a kernel that skips 64 keys in the last
+   rows (``dense_rows``); B3's mass bit for bit across two
    launches and its top slot against the plain one's; each kernel timed
    at the serve path's shapes beside its bound, its plain version and (B2)
    ``scaled_dot_product_attention``;
@@ -67,6 +79,17 @@ SEED = 20251121
 # sides from the same inputs, so it is held at the f32 tolerance in both.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 MASS_TOL = 2e-5
+# B2 in bf16, element by element against the plain version in f32 from the
+# same bf16 inputs, on the scale of bf16's rounding (2^-8 relative):
+#   |got - want| <= BF16_C * (2^-8 * max(|want|, RMS of want's row) + BF16_FLOOR)
+# Rounding the output to bf16 alone errs by up to 1 in these units, and
+# rounding P to bf16 before P.V adds an error random in sign with a
+# standard deviation near 0.3 units, so some 2 units at the largest of
+# 10^7-10^8 elements.  On an H100 the kernel reads 2.1-2.9 at every case;
+# a kernel that drops 64 keys of the last rows reads 240 or more, which
+# the smoke shows for every case (PERF.md).
+BF16_C = 4.0
+BF16_FLOOR = 1e-6
 # serve vs plain, f32 logits: kernels and plain versions differ in
 # attention's summation order only (~1e-6 relative); two layers and the
 # 4096-wide head keep that near 1e-5 on logits of magnitude ~1-5
@@ -75,6 +98,24 @@ SERVE_LOGIT_TOL = 1e-4
 # x 132 SMs x 1.98 GHz boost clock (H100 SXM data sheet)
 H100_INT32_OPS_PER_S = 64 * H100_SMS * 1.98e9
 BIG_K = 104857 * 4           # DAC kmax of the large-state phase
+
+
+def b1_edges(ps, plan):
+    """The widest row of B1's warp path and of its block path with the row
+    in shared memory under ``plan``, read from the kernel's own size
+    dispatch (``replay_path``) over the widths it takes (multiples of 128);
+    past the second the row lives in device memory."""
+    W, path, edges = 128, ps.replay_path(128, plan), []
+    while path != ps.PATHS[-1]:
+        nxt = ps.replay_path(W + 128, plan)
+        if nxt != path:
+            edges.append(W)
+            path = nxt
+        W += 128
+    if len(edges) != 2 or ps.replay_path(128, plan) != ps.PATHS[0]:
+        raise AssertionError(f"B1's dispatch for plan {plan.pid}: edges "
+                             f"{edges}; expected warp, shared, device")
+    return edges
 
 
 START = time.perf_counter()
@@ -195,12 +236,40 @@ def step_cases(K, fill, pid, rng):
     return rows, keys.astype(np.int32), np.array(sc, np.int32)
 
 
+def step_case_check(ps, pname, plan, K, fill, rng, dev):
+    """Three consecutive ``policy_step_batched`` steps of one (K, fill)
+    case, each held against the plain step.  Returns (max abs err, lanes
+    grown, lanes shrunk)."""
+    import torch
+    rows, keys, sc = step_cases(K, fill, plan.pid, rng)
+    cache = torch.from_numpy(rows).to(dev)
+    key = torch.from_numpy(keys).to(dev)
+    scal = tuple(torch.from_numpy(sc).to(dev).unbind(-1))
+    err, grows, shrinks = 0.0, 0, 0
+    for s in range(3):
+        got = ps.policy_step_batched(cache, key, scal, plan)
+        want = ps.step_plain(cache, key, scal, plan)
+        torch.cuda.synchronize()
+        what = f"step {pname} K={K} {fill} s={s}"
+        err = max(err, max_err(got[0], want[0], what + " row"))
+        for q, (g, w) in enumerate(zip(got[1], want[1])):
+            err = max(err, max_err(g, w, f"{what} scalar{q}"))
+        err = max(err, max_err(got[2], want[2], what + " hit"))
+        err = max(err, max_err(got[3], want[3], what + " evicted"))
+        if len(scal) >= 4:                            # DAC: k is scalar 2
+            grows += int((got[1][2] > scal[2]).sum())
+            shrinks += int((got[1][2] < scal[2]).sum())
+        cache, scal = got[0], got[1]
+        key = cache[:, 0].clone() if s == 0 else key + 1
+    return err, grows, shrinks
+
+
 def phase_step(dev):
     import numpy as np
-    import torch
-    from repro_torch.core import make_policy
+    from repro_torch.core import lane_pad, make_policy
     from repro_torch.kernels import policy_step as ps
 
+    ps.LAUNCHES = 0
     rng = np.random.default_rng(20251121)
     plans = {"climb": make_policy("climb").plan(),
              "ac": make_policy("ac").plan(),
@@ -210,33 +279,29 @@ def phase_step(dev):
     for pname, plan in plans.items():
         for K in (1, 7, 127, 128, 129, 1000, BIG_K):
             for fill in ("empty", "mid", "full"):
-                rows, keys, sc = step_cases(K, fill, plan.pid, rng)
-                cache = torch.from_numpy(rows).to(dev)
-                key = torch.from_numpy(keys).to(dev)
-                scal = tuple(torch.from_numpy(sc).to(dev).unbind(-1))
-                # three consecutive steps, each held against the plain step
-                for s in range(3):
-                    got = ps.policy_step_batched(cache, key, scal, plan)
-                    want = ps.step_plain(cache, key, scal, plan)
-                    torch.cuda.synchronize()
-                    what = f"step {pname} K={K} {fill} s={s}"
-                    err = max(err, max_err(got[0], want[0], what + " row"))
-                    for q, (g, w) in enumerate(zip(got[1], want[1])):
-                        err = max(err, max_err(g, w, f"{what} scalar{q}"))
-                    err = max(err, max_err(got[2], want[2], what + " hit"))
-                    err = max(err, max_err(got[3], want[3], what + " evicted"))
-                    if len(scal) >= 4:                # DAC: k is scalar 2
-                        grows += int((got[1][2] > scal[2]).sum())
-                        shrinks += int((got[1][2] < scal[2]).sum())
-                    cache, scal = got[0], got[1]
-                    key = cache[:, 0].clone() if s == 0 else key + 1
-                    cases += 1
+                e, g, sh = step_case_check(ps, pname, plan, K, fill, rng, dev)
+                err, grows, shrinks = max(err, e), grows + g, shrinks + sh
+                cases += 3
     if grows == 0 or shrinks == 0:
         raise Mismatch(f"DAC step cases did not grow and shrink "
                        f"(grows {grows}, shrinks {shrinks})")
+    # both sides of each of the kernel's size dispatches, on an rng of their
+    # own
+    rng = np.random.default_rng(SEED + 1)
+    edge_cases, edge_w = 0, set()
+    for pname, plan in plans.items():
+        warp_w, smem_w = b1_edges(ps, plan)
+        for K in (warp_w, warp_w + 1, smem_w, smem_w + 1):
+            edge_w.add(lane_pad(K))
+            for fill in ("empty", "mid", "full"):
+                e, _, _ = step_case_check(ps, pname, plan, K, fill, rng, dev)
+                err = max(err, e)
+                edge_cases += 3
     return {"phase": "kernel_vs_plain_step", "cases": cases,
             "dac_grows": grows, "dac_shrinks": shrinks,
-            "max_abs_err": err, "launches": ps.STEP_LAUNCHES}
+            "dispatch_edge_cases": edge_cases,
+            "dispatch_edge_W": sorted(edge_w),
+            "max_abs_err": err, "launches": ps.LAUNCHES}
 
 
 def replay_inputs(B, T, dev, family="alibaba"):
@@ -253,12 +318,11 @@ def replay_inputs(B, T, dev, family="alibaba"):
 
 
 def large_state_inputs(pol, K, B, T, dev, seed=7):
-    """A state and requests at the large state's width (the row lives in
-    device memory): rows full to ``k``; lanes that grow on their first
-    request (``jump`` one below ``2k``, then a miss), lanes that shrink on
-    it (at the halving threshold, then a hit at rank 0), and lanes at
-    random ``jump``/``jump'``; after the first request, hits at any depth
-    and fresh misses, half each."""
+    """A state and requests for a wide row: rows full to ``k``; for DAC,
+    lanes that grow on their first request (``jump`` one below ``2k``,
+    then a miss), lanes that shrink on it (at the halving threshold, then a
+    hit at rank 0), and lanes at random ``jump``/``jump'``; after the first
+    request, hits at any depth and fresh misses, half each."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -272,6 +336,8 @@ def large_state_inputs(pol, K, B, T, dev, seed=7):
         fresh = 4 * K + b * T + np.arange(T)
         deep = rows[b, rng.integers(0, K, T)]
         keys[b] = np.where(rng.random(T) < 0.5, deep, fresh)
+        if "jump2" not in pol.SCALARS:
+            continue
         if b % 4 == 0:                                # grows
             sc[b, :2] = (2 * K - 1, 0)
             keys[b, 0] = fresh[0]
@@ -290,19 +356,41 @@ def large_state_inputs(pol, K, B, T, dev, seed=7):
              to(costs, torch.float32)))
 
 
-def bound(out, B, T, W, n_sc):
-    """Least time (ms) on an H100 for a replay's work: the bytes it must
-    move (requests read once, rows and scalars read and written once,
-    totals written once) over the memory rate, against the rank compares,
-    moves and wipes this run's data needed over the int32 ALU rate of the
-    whole card.  Also the operations' time on the ``min(B, 132)`` SMs that
-    one block per lane can occupy."""
+def live_ops(info, sc0, W, pid):
+    """The rank operations a replay's data needs, the find counted to the
+    live width: on a hit the ``m + 1`` ranks up to the key, on a miss the
+    live width before the step (``n`` for Climb and AdaptiveClimb, DAC's
+    ``k``), past which every rank is EMPTY; the ranks shifted; and the
+    ranks a DAC shrink wipes (``k`` before less ``k`` after; every other
+    wipe is of ranks that are EMPTY already).  The ``work`` counts keep
+    ``W`` for a miss and those wipes.  ``info`` is a replay of the inputs
+    with ``collect_info`` and ``observe``, ``sc0`` the scalars before it,
+    ``W`` the kernel's row width."""
+    import torch
+    from repro_torch.core.policy import PLAN_ADAPTIVECLIMB, PLAN_CLIMB
+    col = {PLAN_CLIMB: 0, PLAN_ADAPTIVECLIMB: 1}.get(pid, 2)
+    live = torch.cat([sc0[:, None, col], info.obs[:, :-1, col]], 1)
+    live = live.long().clamp(0, W)
+    miss = ~info.hit
+    scanned, moved, _ = info.work.sum(0).tolist()
+    ops = scanned - W * int(miss.sum()) + int(live[miss].sum()) + moved
+    if col == 2:
+        ops += int((live - info.obs[..., 2].long()).clamp(min=0).sum())
+    return ops
+
+
+def bound(out, B, T, W, n_sc, ops):
+    """Least time (ms) on an H100 for a replay: the bytes it must move
+    (requests read once, rows and scalars read and written once, totals and
+    the per-step outputs of its mode written once) over the memory rate,
+    against ``ops`` (:func:`live_ops`) over the int32 ALU rate of the whole
+    card.  Also the operations' time on the ``min(B, 132)`` SMs that one
+    block or warp per lane can occupy."""
     bytes_ = 12 * B * T + 8 * B * W + 8 * B * n_sc + B * (16 + 16 + 24)
     if out.hit is not None:
         bytes_ += 5 * B * T
     if out.obs is not None:
         bytes_ += 4 * B * T * n_sc
-    ops = int(out.work.sum())
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S
     sms = min(B, H100_SMS)
     return (max(t_bytes, t_ops) * 1e3,
@@ -337,15 +425,26 @@ def phase_replay(dev):
                   for spec in ("dac", "ac", "climb")]
     big = make_policy("dac(growth=4)")
     K_big, B_big, T_big = k_for(1 << 20, "L"), 16, 256
-    big_state = large_state_inputs(big, K_big, B_big, T_big, dev)
+    wide = {K_big: large_state_inputs(big, K_big, B_big, T_big, dev)}
     cases += [(B_big, K_big, None, "dac(growth=4)",
                {"collect_info": ci, "observe": True}) for ci in (True, False)]
+    # both sides of each of the kernel's size dispatches: the widest rows of
+    # the warp path and the narrowest of the block path, the widest held in
+    # shared memory and the narrowest in device memory
+    for spec, kmax_per_k in (("dac(growth=4)", 4), ("climb", 1)):
+        for W_edge in b1_edges(ps, make_policy(spec).plan()):
+            K_lo = W_edge // kmax_per_k
+            for K in (K_lo, K_lo + 1):
+                wide[spec, K] = large_state_inputs(make_policy(spec), K,
+                                                   B_big, T_big, dev, seed=K)
+                cases.append((B_big, K, (spec, K), spec,
+                              {"collect_info": True, "observe": True}))
 
     err, timing, inputs, rows, resizes = 0.0, None, {}, [], [0, 0]
     for B, K, fam, spec, kw in cases:
         pol = make_policy(spec)
-        if fam is None:
-            cache, sc, reqs = big_state
+        if fam is None or isinstance(fam, tuple):
+            cache, sc, reqs = wide[K if fam is None else fam]
             T_case = T_big
         else:
             if (B, fam) not in inputs:
@@ -361,18 +460,25 @@ def phase_replay(dev):
             err = max(err, max_err(getattr(got, f), getattr(want, f),
                                    f"replay {spec} B={B} K={K} {kw} {f}"))
         W = cache.shape[1]
+        if isinstance(fam, tuple) and spec.startswith("dac") and not (
+                (got.obs[..., 2] > K).any() and (got.obs[..., 2] < K).any()):
+            raise Mismatch(f"replay {spec} W={W}: lanes did not resize")
         if fam is None:
             k = got.obs[..., 2]
             resizes[0] += int((k > K).any(1).sum())
             resizes[1] += int((k < K).any(1).sum())
         if B == 8:
             continue
-        b_ms, b_by, b_sms = bound(got, B, T_case, W, sc.shape[1])
+        info = got if kw["collect_info"] and kw["observe"] else \
+            ps.policy_replay(*args, collect_info=True, observe=True)
+        ops = live_ops(info, sc, W, pol.plan().pid)
+        b_ms, b_by, b_sms = bound(got, B, T_case, W, sc.shape[1], ops)
         ms = cuda_ms(lambda: ps.policy_replay(*args, **kw))
-        row = {"spec": spec, "shape": [B, T_case], "K": K, "W": W, **kw,
+        row = {"spec": spec, "shape": [B, T_case], "K": K, "W": W,
+               "path": ps.replay_path(W, pol.plan()), **kw,
                "ms": ms, "us_per_step": ms * 1e3 / T_case,
                "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
-               "bound_by": b_by, **b_sms,
+               "bound_by": b_by, **b_sms, "ops": ops,
                "work": got.work.sum(0).tolist()}
         rows.append(row)
         if K == K0 and spec == "dac":
@@ -409,15 +515,17 @@ FIFO_T = 50_000
 
 
 def phase_main(dev, seeds=16, T=200_000):
+    """The main path; returns its B1 launches, their mean ms (whole-trace
+    calls) and the mean bound of those launches."""
     import numpy as np
     import torch
-    from repro_torch.core import Engine, Request, mrr
+    from repro_torch.core import Engine, Request, lane_pad
     from repro_torch.data.traces import (family_batch, family_footprint,
                                          fetch_costs, object_sizes)
     from repro_torch.kernels import policy_step as ps
 
     engine = Engine(device=dev)
-    reqs, calls, full_calls, rank_s = {}, 0, 0, 0.0
+    reqs = {}
     for K, fams in main_groups().items():
         keys, sizes, costs = [], [], []
         for fam in fams:
@@ -430,7 +538,52 @@ def phase_main(dev, seeds=16, T=200_000):
         for T_w in (T, FIFO_T):
             reqs[K, T_w] = Request.of(*(np.ascontiguousarray(x[:, :T_w])
                                         for x in cols), device=dev)
+    # record each launch's inputs and outputs (the engine keeps only the
+    # metrics) for the bound of the main path's launches
+    replay, works = ps.policy_replay, []
+
+    def recording(cache, scalars, keys, *args, **kw):
+        out = replay(cache, scalars, keys, *args, **kw)
+        works.append((cache, scalars, keys, args, out))
+        return out
+
+    ps.policy_replay = recording
     ps.LAUNCHES = 0
+    try:
+        calls, rank_s = main_calls(engine, reqs, seeds, T)
+    finally:
+        ps.policy_replay = replay
+    launches = ps.LAUNCHES
+    if launches != calls or len(works) != calls:
+        raise AssertionError(
+            f"policy_replay launched {launches} times on the main path; "
+            f"expected one per rank-policy replay ({calls})")
+    # each whole-trace launch's bound, its live-width ranks from a rerun of
+    # its inputs with per-step outputs (launched after the count was read)
+    full = []
+    for cache, scalars, keys, args, out in works:
+        if keys.shape[1] != T:
+            continue
+        W = lane_pad(cache.shape[1])
+        info = replay(cache, scalars, keys, *args, collect_info=True,
+                      observe=True)
+        if not torch.equal(info.work, out.work):
+            raise AssertionError("main path: a rerun's work counts differ")
+        ops = live_ops(info, scalars, W, args[-1].pid)
+        full.append(bound(out, cache.shape[0], T, W, scalars.shape[1],
+                          ops)[0])
+        del info
+    return launches, rank_s * 1e3 / len(full), sum(full) / len(full)
+
+
+def main_calls(engine, reqs, seeds, T):
+    """The main path's engine calls: every capacity group through dac, ac,
+    climb (whole traces and the MRR prefix) and fifo (the prefix).
+    Returns (rank-policy calls, seconds of the whole-trace ones)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mrr
+    calls, rank_s = 0, 0.0
     for K, fams in main_groups().items():
         B = seeds * len(fams)
         rows = {fam: {"family": fam, "K": K, "lanes": seeds}
@@ -464,19 +617,13 @@ def phase_main(dev, seeds=16, T=200_000):
                 if spec != "fifo":
                     calls += 1
                     if T_w == T:
-                        full_calls += 1
                         rank_s += s
         for row in rows.values():
             for spec in ("dac", "ac"):
                 row[f"mrr_{spec}"] = mrr(row[spec]["prefix"]["miss_ratio"],
                                          row["fifo"]["prefix"]["miss_ratio"])
             emit({"phase": "main_path", "mrr_T": FIFO_T, **row})
-    launches = ps.LAUNCHES
-    if launches != calls:
-        raise AssertionError(
-            f"policy_replay launched {launches} times on the main path; "
-            f"expected one per rank-policy replay ({calls})")
-    return launches, rank_s * 1e3 / full_calls
+    return calls, rank_s
 
 
 def phase_large(dev):
@@ -519,6 +666,78 @@ def close_err(got, want, tol, what):
     return d
 
 
+def dense_rows(q, k, v, rows, drop, *, causal=True, window=None,
+               softcap=0.0):
+    """Plain attention in f32 for the query rows ``rows`` with the keys
+    ``drop`` hidden from them: the output a wrong kernel would give if it
+    skipped those keys (with ``drop`` empty, ``attention_dense``'s rows)."""
+    import math
+
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, g = k.shape[1], H // k.shape[2]
+    qf = q[:, rows].float() / math.sqrt(D)
+    kf, vf = (x.float().repeat_interleave(g, 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos, kpos = rows[:, None], torch.arange(Sk, device=q.device)[None]
+    keep = torch.ones((len(rows), Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    keep[:, drop] = False
+    s = torch.where(keep, s, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf)
+
+
+def b2_case(fa, q, k, v, kw, what):
+    """B2 against its plain version on one case, within ``ATTN_TOL``; in
+    bf16 also element by element within ``BF16_C`` against the plain
+    version in f32, and the output of a kernel that skips 64 keys (the
+    middle of the last row's visible keys) in the last 64 query rows must
+    exceed that.  Returns the case's readings."""
+    import torch
+    got = fa.flash_attention(q, k, v, **kw)
+    want32 = fa.attention_dense(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    row = {"max_abs_err": close_err(got.float(), want32.to(q.dtype).float(),
+                                    tol, what), "tol": tol}
+    if q.dtype != torch.bfloat16:
+        return row
+    scale = torch.maximum(want32.abs(),
+                          want32.square().mean(-1, keepdim=True).sqrt())
+
+    def units(o, ref, sc):
+        return ((o.float() - ref).abs()
+                / (2.0 ** -8 * sc + BF16_FLOOR)).max().item()
+
+    row["scaled_err"] = units(got, want32, scale)
+    if not row["scaled_err"] <= BF16_C:
+        raise Mismatch(f"{what}: {row['scaled_err']} > {BF16_C} units of "
+                       f"bf16 rounding")
+    Sq, Sk = q.shape[1], k.shape[1]
+    causal, window = kw.get("causal", True), kw.get("window")
+    last = Sq - 1
+    lo = max(0, last - window + 1) if window else 0
+    hi = last + 1 if causal else Sk
+    mid = (lo + hi) // 2
+    rows = torch.arange(max(0, Sq - 64), Sq, device=q.device)
+    drop = torch.arange(mid, min(mid + 64, hi), device=q.device)
+    dkw = dict(causal=causal, window=window, softcap=kw.get("softcap", 0.0))
+    close_err(dense_rows(q, k, v, rows, drop[:0], **dkw), want32[:, rows],
+              ATTN_TOL["float32"], what + " dense_rows")
+    bad = dense_rows(q, k, v, rows, drop, **dkw).to(q.dtype)
+    row["dropped_keys_scaled_err"] = units(bad, want32[:, rows],
+                                           scale[:, rows])
+    if not row["dropped_keys_scaled_err"] > BF16_C:
+        raise Mismatch(f"{what}: the bf16 check passes a kernel that drops "
+                       f"{len(drop)} keys of the last rows")
+    return row
+
+
 def randn(gen, shape, dtype, dev):
     import torch
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -529,6 +748,21 @@ FLASH_SHAPES = [
     ("deepseek-7b", 8, 2048, 32, 32, 128, 128, None, 0.0),
     ("gemma2-27b", 1, 8192, 32, 16, 128, 128, 4096, 50.0),
     ("prime", 2, 1021, 8, 2, 96, 64, 300, 30.0),
+]
+# B2's edge cases, each in f32 and bf16 against the plain version (own
+# generator): name, B, Sq, Sk, H, Hkv, D, Dv, window, softcap, causal.
+# D = Dv = 256 (the 4-warp tensor-core tiles), D and Dv not multiples of 16
+# (zero-padded in shared memory) nor of 8 (copied element by element),
+# GQA with H/Hkv = 8, a 17-token sequence (one ragged tile), D != Dv across
+# the tile classes, and non-causal attention with Sq != Sk
+FLASH_EDGE_SHAPES = [
+    ("d256", 2, 1000, 1000, 8, 4, 256, 256, None, 0.0, True),
+    ("d72-dv40", 2, 777, 777, 8, 2, 72, 40, 200, 20.0, True),
+    ("d36-dv20", 1, 300, 300, 4, 2, 36, 20, None, 0.0, True),
+    ("gqa8", 2, 1024, 1024, 32, 4, 128, 128, None, 0.0, True),
+    ("s17", 3, 17, 17, 4, 2, 128, 128, None, 0.0, True),
+    ("d96-dv256", 1, 500, 500, 4, 4, 96, 256, 100, 0.0, True),
+    ("non-causal", 2, 200, 333, 8, 4, 64, 64, None, 0.0, False),
 ]
 # name, B, S, H, Hkv, D, Dv, softcap, valid pattern
 DECODE_SHAPES = [
@@ -602,17 +836,11 @@ def phase_attention(dev):
             k = randn(gen, (B, S, Hkv, D), dtype, dev)
             v = randn(gen, (B, S, Hkv, Dv), dtype, dev)
             kw = dict(window=win, softcap=cap)
-            got = fa.flash_attention(q, k, v, **kw)
-            want = fa.attention_dense(q, k, v, **kw)
-            torch.cuda.synchronize()
-            tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
-            e = close_err(got.float(), want.float(), tol,
-                          f"B2 {name} {dtype}")
-            err["flash"] = max(err["flash"], e)
+            case = b2_case(fa, q, k, v, kw, f"B2 {name} {dtype}")
+            err["flash"] = max(err["flash"], case["max_abs_err"])
             rows.append({"kernel": "B2", "case": name, "dtype": str(dtype),
                          "shape": [B, S, H, Hkv, D, Dv], "window": win,
-                         "softcap": cap, "max_abs_err": e, "tol": tol})
-            del got, want
+                         "softcap": cap, **case})
             if name == "deepseek-7b" and dtype == torch.bfloat16:
                 # the serve path's shape: kernel, plain, SDPA (timed only)
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
@@ -631,6 +859,19 @@ def phase_attention(dev):
                     flops / timed["flash"]["ms"] / 1e9)
                 del qt, kt, vt
             del q, k, v
+    gen_edge = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for (name, B, Sq, Sk, H, Hkv, D, Dv, win, cap,
+         causal) in FLASH_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen_edge, (B, Sq, H, D), dtype, dev)
+            k = randn(gen_edge, (B, Sk, Hkv, D), dtype, dev)
+            v = randn(gen_edge, (B, Sk, Hkv, Dv), dtype, dev)
+            kw = dict(window=win, softcap=cap, causal=causal)
+            case = b2_case(fa, q, k, v, kw, f"B2 {name} {dtype}")
+            err["flash"] = max(err["flash"], case["max_abs_err"])
+            rows.append({"kernel": "B2", "case": name, "dtype": str(dtype),
+                         "shape": [B, Sq, Sk, H, Hkv, D, Dv], "window": win,
+                         "softcap": cap, "causal": causal, **case})
     torch.cuda.empty_cache()
 
     near_ties = 0
@@ -683,7 +924,12 @@ def phase_attention(dev):
                     "bound_ms": b_ms, "bound_by": b_by}
             del q, k, v, o, o2, po
     torch.cuda.empty_cache()
+    b2_bf16 = [r for r in rows if "scaled_err" in r]
     return ({"phase": "attention_kernels", "cases": rows,
+             "b2_bf16_scaled_err_max": max(r["scaled_err"] for r in b2_bf16),
+             "b2_bf16_dropped_keys_scaled_err_min": min(
+                 r["dropped_keys_scaled_err"] for r in b2_bf16),
+             "b2_bf16_limit": BF16_C,
              "b3_rows_within_margin": near_ties, "timed": timed},
             err, timed)
 
@@ -957,9 +1203,9 @@ def main() -> int:
     res, e, timing = phase_replay(dev)
     err = max(err, e)
     emit(res)
-    launches, main_ms = phase_main(dev)
+    launches, main_ms, main_bound = phase_main(dev)
     emit({"phase": "main_path_launches", "policy_replay": launches,
-          "ms_per_launch": main_ms})
+          "ms_per_launch": main_ms, "bound_ms_per_launch": main_bound})
     emit(phase_large(dev))
     res, attn_err, attn = phase_attention(dev)
     emit(res)

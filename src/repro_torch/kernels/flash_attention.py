@@ -7,8 +7,10 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 ``models/layers.py::chunked_attention``.  The port's prefill runs it where
 the reference runs ``chunked_attention`` (``models/model.py:127``).  The
 kernel is hand-written CUDA C++ for ``sm_90a`` in
-``csrc/flash_attention.cu`` (its header gives the design and the bound),
-built by :mod:`._build` and called through ``ctypes``.
+``csrc/flash_attention.cu`` (its header gives the design and the bound):
+bf16 on the tensor cores (``wgmma`` fed by ``cp.async``), f32
+on the CUDA cores.  It is built by :mod:`._build` and called through
+``ctypes``.
 
 :func:`attention_dense` is the plain version: the reference's
 ``models/layers.py::attention_dense`` (the Pallas kernel's oracle) in

@@ -5,33 +5,36 @@ Replaces the TPU kernel ``src/repro/kernels/policy_step.py``
 (``fused_policy_step`` :269, launched by ``_batched_call`` through
 ``pl.pallas_call`` at :247).  The kernel is hand-written CUDA C++ for
 ``sm_90a`` in ``csrc/policy_step.cu``, built by :mod:`._build` and called
-through ``ctypes``.  Two entry points share its device step:
+through ``ctypes``.  Its one entry point serves two wrappers:
 
-* :func:`policy_step_batched` — one step on ``B`` lanes; the body of
-  :func:`repro_torch.core.policy.rank_step` on CUDA tensors;
 * :func:`policy_replay` — ``T`` steps over a ``[B, T]`` request block with
   the time loop inside the kernel, one launch per replay; the engine's
-  replacement for ``lax.scan``.
+  replacement for ``lax.scan``;
+* :func:`policy_step_batched` — one step on ``B`` lanes, the body of
+  :func:`repro_torch.core.policy.rank_step` on CUDA tensors: a replay of
+  one request.
 
 On CPU tensors each wrapper runs its plain version (:func:`step_plain`,
 :func:`replay_plain`), which mirrors the reference's jnp branch
 (``core/policy.py:326-332``) and is the kernel's oracle on the card.  On a
 CUDA tensor a wrapper launches the kernel or raises.
 
-Bound on an H100: integer compares and moves.  A step scans ``m + 1``
-ranks on a hit and all ``W`` on a miss (``4 * W`` bytes), shifts
-``src - t`` ranks (``8 * (src - t)`` bytes) and wipes ``W - wipe_from``;
-the replay writes these three counts per lane (``work``) so that a run's
-bound is reckoned from the work its data needed.  ``B`` lanes run as ``B``
-blocks on 132 SMs; each step's phases depend on each other, so at the main
-path's widths a step is latency bound.  The design keeps the row in shared
-memory for the whole replay when ``4 * W`` bytes fit, stops the find at
-the first chunk that holds the key and shifts four ranks per thread
-between barriers.
+Bound on an H100: integer compares and moves.  The replay writes three
+counts per lane (``work``): ranks scanned (``m + 1`` on a hit, all ``W``
+on a miss), moved (``src - t``) and wiped (``W - wipe_from``).  The
+kernel's find stops at the live width (``n``, or DAC's ``k``), past which
+every rank is ``EMPTY``, so on a miss it scans fewer ranks than the count
+says, and it skips wipes of ranks that are ``EMPTY`` already;
+``chip_smoke.py`` reckons a run's bound from the ranks its data needs, on
+that live width.  Each step's phases depend on each other, so at the main path's
+widths a step is latency bound.  The kernel's size dispatch
+(:func:`replay_path`) runs narrow rows one warp per lane with no block
+barrier, the top 128 ranks in registers, and wider rows one block per
+lane, the row in shared memory up to 200 KiB and in device memory past it.
+The source's header gives the design.
 
-``LAUNCHES`` / ``STEP_LAUNCHES`` count launches of ``policy_replay`` /
-``policy_step_batched``: each wrapper adds one where it launches, and
-nowhere else.
+``LAUNCHES`` counts launches of the kernel: :func:`policy_replay` adds one
+where it launches, and nowhere else.
 """
 from __future__ import annotations
 
@@ -45,11 +48,12 @@ import torch
 from ..core.policy import EMPTY, Plan, find, lane_pad, promote
 from . import _build
 
-__all__ = ["policy_step_batched", "policy_replay", "step_plain",
-           "replay_plain", "ReplayOut", "LAUNCHES", "STEP_LAUNCHES"]
+__all__ = ["policy_step_batched", "policy_replay", "replay_path",
+           "step_plain", "replay_plain", "ReplayOut", "LAUNCHES"]
 
 LAUNCHES = 0
-STEP_LAUNCHES = 0
+# the kernel's paths, by the code policy_replay_path returns
+PATHS = ("warp", "block, row in shared memory", "block, row in device memory")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,13 +62,12 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("policy_step")
-    lib.policy_step_batched.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        ctypes.c_float, _I, _P]
-    lib.policy_step_batched.restype = _I
     lib.policy_replay.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P, _P, _P, _P, _P, _P,
                                   _P]
     lib.policy_replay.restype = _I
+    lib.policy_replay_path.argtypes = [_I, _I]
+    lib.policy_replay_path.restype = _I
     return lib
 
 
@@ -182,32 +185,43 @@ def _stream(device):
 
 def policy_step_batched(cache, key, scalars, plan: Plan):
     """One rank-policy step on ``B`` lanes: ``cache [B, K]`` int32, ``key
-    [B]``, ``scalars`` a tuple of ``[B]`` int32.  Rows of any width are
-    padded to a :data:`LANE` multiple for the kernel and sliced back.
-    Returns ``(new_cache, new_scalars, hit, evicted)``."""
-    global STEP_LAUNCHES
+    [B]``, ``scalars`` a tuple of ``[B]`` int32.  Returns ``(new_cache,
+    new_scalars, hit, evicted)``, ``evicted`` being the pre-update occupant
+    of rank ``src``.
+
+    On the card this is :func:`policy_replay` of one request.  On a hit
+    ``src`` is the find's rank, whose occupant is the key itself, so
+    ``evicted`` is the key there and the replay's evicted key elsewhere."""
     if cache.device.type == "cpu":
         return step_plain(cache, key, scalars, plan)
-    if cache.device.type != "cuda":
-        raise ValueError(f"no kernel for device {cache.device}")
-    key = key.to(torch.int32)
-    _check_cuda(cache, key, *scalars)
-    B, K = cache.shape
-    row = _pad(cache)
-    n = len(scalars)
-    sc = (torch.stack([s.to(torch.int32) for s in scalars], -1).contiguous()
-          if n else torch.empty((B, 0), dtype=torch.int32,
-                                device=cache.device))
-    hit = torch.empty(B, dtype=torch.int32, device=cache.device)
-    ev = torch.empty(B, dtype=torch.int32, device=cache.device)
-    key = key.contiguous()
-    status = _lib().policy_step_batched(
-        _ptr(row), _ptr(key), _ptr(sc), _ptr(hit), _ptr(ev), B, row.shape[1],
-        n, plan.pid, float(np.float32(plan.eps)), plan.k_min,
-        _stream(cache.device))
-    _build.check(status, "policy_step_batched")
-    STEP_LAUNCHES += 1
-    return row[:, :K], tuple(sc.unbind(-1)), hit.to(torch.bool), ev
+    B = cache.shape[0]
+    sc = (torch.stack([s.to(torch.int32) for s in scalars], -1)
+          if scalars else torch.empty((B, 0), dtype=torch.int32,
+                                      device=cache.device))
+    keys = key.to(torch.int32).reshape(B, 1)
+    zeros = torch.zeros((B, 1), dtype=torch.int32, device=cache.device)
+    return step_from_replay(policy_replay(cache, sc, keys, zeros,
+                                          zeros.float(), plan,
+                                          collect_info=True), keys)
+
+
+def step_from_replay(out: ReplayOut, keys):
+    """A replay of one request (``keys [B, 1]``, ``collect_info``) as a
+    step's ``(new_cache, new_scalars, hit, evicted)``: the replay's evicted
+    key is EMPTY on a hit, where the occupant of rank ``src`` is the key."""
+    hit = out.hit[:, 0]
+    evicted = torch.where(hit, keys[:, 0], out.evicted[:, 0])
+    return out.cache, tuple(out.scalars.unbind(-1)), hit, evicted
+
+
+def replay_path(W: int, plan: Plan) -> str:
+    """Which of the kernel's paths (:data:`PATHS`) a replay of rows of
+    ``W`` ranks (a multiple of 128) takes under ``plan``: the size
+    dispatch of ``csrc/policy_step.cu``, asked of the built library."""
+    code = _lib().policy_replay_path(W, plan.pid)
+    if code < 0:
+        raise ValueError(f"no path for W={W}, plan id {plan.pid}")
+    return PATHS[code]
 
 
 def policy_replay(cache, scalars, keys, sizes, costs, plan: Plan, *,

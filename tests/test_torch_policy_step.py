@@ -22,6 +22,7 @@ from repro_torch.core import make_policy as port_policy  # noqa: E402
 from repro_torch.core import policy as pp  # noqa: E402
 from repro_torch.core.state_io import (state_from_reference,  # noqa: E402
                                        state_to_numpy)
+from repro_torch.kernels import policy_step as kps  # noqa: E402
 
 KS = (1, 7, 127, 128, 129, 1000)
 PLANS = ("climb", "ac", "dac", "dac_budgeted")
@@ -176,6 +177,34 @@ def test_rank_step_raw_outputs_on_tight_rows(K):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+
+
+@pytest.mark.parametrize("fill", ("empty", "mid", "full"))
+@pytest.mark.parametrize("K", (7, 128, 1000))
+@pytest.mark.parametrize("plan", PLANS)
+def test_step_as_one_request_replay(plan, K, fill):
+    """On the card a step is a replay of one request
+    (``step_from_replay``); its outputs, the raw evicted occupant
+    included, equal the plain step's, which the tests above hold against
+    the reference."""
+    state, keys = make_case(plan, K, fill, B=8, seed=K + len(fill))
+    names = [n for n in state if n != "cache"]
+    pol = port_policy("dac" if plan.startswith("dac") else plan)
+    port_plan = (pol.plan(budgeted=plan == "dac_budgeted")
+                 if plan.startswith("dac") else pol.plan())
+    cache = torch.from_numpy(state["cache"])
+    scalars = tuple(torch.from_numpy(state[n]) for n in names)
+    key = torch.from_numpy(keys).reshape(-1, 1)
+    zeros = torch.zeros_like(key)
+    out = kps.replay_plain(cache, torch.stack(scalars, -1), key, zeros,
+                           zeros.float(), port_plan, collect_info=True,
+                           observe=False)
+    got = kps.step_from_replay(out, key)
+    want = kps.step_plain(cache, key[:, 0], scalars, port_plan)
+    assert bool(want[2].any()) or fill == "empty"
+    for g, w in zip((got[0], *got[1], *got[2:]),
+                    (want[0], *want[1], *want[2:])):
+        assert torch.equal(g, w)
 
 
 def test_wipe_at_lane_boundary():
