@@ -35,15 +35,23 @@ Phases, one JSON line each:
    against their plain versions in f32 and bf16 at deepseek-7b's shapes
    (B2 ``[8, 2048, 32, 128]`` causal; B3 at S = 2112 and at S = 512 with a
    sparse ``valid``), gemma2-27b's (GQA 32/16, window 4096, softcap 50,
-   S = 8192, B = 1) and prime lengths; B2 also at ``FLASH_EDGE_SHAPES``
-   (D = Dv = 256, D and Dv not multiples of 16, GQA 8, S = 17, D != Dv,
-   non-causal with Sq != Sk); B2 in bf16 also element by element on
-   bf16's rounding scale (``BF16_C``) against the plain version in f32,
-   which rejects the output of a kernel that skips 64 keys in the last
-   rows (``dense_rows``); B3's mass bit for bit across two
-   launches and its top slot against the plain one's; each kernel timed
-   at the serve path's shapes beside its bound, its plain version and (B2)
-   ``scaled_dot_product_attention``;
+   S = 8192, B = 1) and prime lengths; B3 also at mixtral-8x22b's and
+   qwen1.5-110b's head groups (g = 6, 8), musicgen-medium's D = 64, a
+   short prefix in a long buffer, S = 17, g = 12 with D 72 / Dv 40, D 34 /
+   Dv 18 (rows copied element by element) and D = Dv = 256; B2 also at
+   ``FLASH_EDGE_SHAPES`` (D = Dv = 256, D and Dv not multiples of 16, GQA
+   8, S = 17, D != Dv, non-causal with Sq != Sk); in bf16 B2 and B3 also
+   element by element on bf16's rounding scale (``BF16_C``,
+   ``B3_BF16_C``) against the plain version in f32, which rejects the
+   output of a kernel that skips 64 keys in B2's last rows
+   (``dense_rows``) or one warp tile of B3's P.V (``b3_dropped_tile``);
+   B3's mass bit for bit across two launches and its top slot against
+   the plain one's; each kernel timed at the serve path's shapes beside
+   its bound, its plain version and (B2) ``scaled_dot_product_attention``;
+   B3 also at gemma2-27b's window, with the L2 cache cold, with its
+   blocks per call, GB/s and share of its bound, beside what the cold
+   timing reads for no work (``decode_sweep.py`` times B3's chunk
+   lengths);
 6. serve: deepseek-7b at full width and depth (30 layers, bf16, seeded
    random weights) through ``prefill`` + 64 greedy ``decode_step`` s on
    B = 8 prompts of 2048 tokens, unbounded and with the DAC-bounded pool
@@ -90,6 +98,13 @@ MASS_TOL = 2e-5
 # the smoke shows for every case (PERF.md).
 BF16_C = 4.0
 BF16_FLOOR = 1e-6
+# B3 in bf16, in the same units against the plain version in f32 from the
+# same bf16 inputs: B3 sums in f32 on the CUDA cores and rounds only its
+# output to bf16, which errs by at most 1 unit (half a bf16 step is at
+# most 2^-8 |want|), so a sound kernel reads 1 or less; a kernel that
+# leaves one warp tile's P.V out (8 slots of a batch row) reads more than
+# 2, which the smoke shows at every ``DECODE_SHAPES`` row (PERF.md)
+B3_BF16_C = 2.0
 # serve vs plain, f32 logits: kernels and plain versions differ in
 # attention's summation order only (~1e-6 relative); two layers and the
 # 4096-wide head keep that near 1e-5 on logits of magnitude ~1-5
@@ -147,6 +162,28 @@ def cuda_ms(fn, reps=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cold_ms(fn, flush, reps=10):
+    """Median milliseconds of ``fn()`` on the card with the L2 cache cold:
+    each launch follows ``flush()`` (a read of more bytes than L2 holds,
+    long enough that the host has mostly queued ``fn`` before it ends), and
+    a pair of events brackets ``fn`` alone.  The median, so that a launch
+    the host was late to queue does not count.  After one warm-up."""
+    import statistics
+
+    import torch
+    fn()
+    pairs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, stop in pairs:
+        flush()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def host_s(fn):
@@ -692,6 +729,20 @@ def dense_rows(q, k, v, rows, drop, *, causal=True, window=None,
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf)
 
 
+def bf16_scale(want32):
+    """The scale of bf16's rounding error at each element of an f32 output:
+    max(|want|, RMS of want's row over its last axis)."""
+    import torch
+    return torch.maximum(want32.abs(),
+                         want32.square().mean(-1, keepdim=True).sqrt())
+
+
+def bf16_units(got, want32, scale):
+    """Largest |got - want| in units of 2^-8 * scale (+ ``BF16_FLOOR``)."""
+    return ((got.float() - want32).abs()
+            / (2.0 ** -8 * scale + BF16_FLOOR)).max().item()
+
+
 def b2_case(fa, q, k, v, kw, what):
     """B2 against its plain version on one case, within ``ATTN_TOL``; in
     bf16 also element by element within ``BF16_C`` against the plain
@@ -707,14 +758,8 @@ def b2_case(fa, q, k, v, kw, what):
                                     tol, what), "tol": tol}
     if q.dtype != torch.bfloat16:
         return row
-    scale = torch.maximum(want32.abs(),
-                          want32.square().mean(-1, keepdim=True).sqrt())
-
-    def units(o, ref, sc):
-        return ((o.float() - ref).abs()
-                / (2.0 ** -8 * sc + BF16_FLOOR)).max().item()
-
-    row["scaled_err"] = units(got, want32, scale)
+    scale = bf16_scale(want32)
+    row["scaled_err"] = bf16_units(got, want32, scale)
     if not row["scaled_err"] <= BF16_C:
         raise Mismatch(f"{what}: {row['scaled_err']} > {BF16_C} units of "
                        f"bf16 rounding")
@@ -730,8 +775,8 @@ def b2_case(fa, q, k, v, kw, what):
     close_err(dense_rows(q, k, v, rows, drop[:0], **dkw), want32[:, rows],
               ATTN_TOL["float32"], what + " dense_rows")
     bad = dense_rows(q, k, v, rows, drop, **dkw).to(q.dtype)
-    row["dropped_keys_scaled_err"] = units(bad, want32[:, rows],
-                                           scale[:, rows])
+    row["dropped_keys_scaled_err"] = bf16_units(bad, want32[:, rows],
+                                                scale[:, rows])
     if not row["dropped_keys_scaled_err"] > BF16_C:
         raise Mismatch(f"{what}: the bf16 check passes a kernel that drops "
                        f"{len(drop)} keys of the last rows")
@@ -764,23 +809,50 @@ FLASH_EDGE_SHAPES = [
     ("d96-dv256", 1, 500, 500, 4, 4, 96, 256, 100, 0.0, True),
     ("non-causal", 2, 200, 333, 8, 4, 64, 64, None, 0.0, False),
 ]
-# name, B, S, H, Hkv, D, Dv, softcap, valid pattern
+# name, B, S, H, Hkv, D, Dv, softcap, valid pattern.  After the serve
+# path's shapes and gemma2-27b's window: the query-head groups of
+# mixtral-8x22b (48/8, g = 6) and qwen1.5-110b (64/8, g = 8),
+# musicgen-medium's D = 64, a short prefix in a long buffer (as early in
+# an unbounded decode: most of the slot axis holds no valid slot), a
+# 17-slot table with an empty row, and three edges of the kernel: 12 query
+# heads a kv head (two head groups) with D 72 / Dv 40 (K rows of 9 and
+# 18 16-byte pieces in bf16 and f32, V rows of 5 and 10), D 34 / Dv 18
+# (rows of 68 / 36 bytes in bf16, 136 / 72 in f32: no multiple of 16, so
+# copied element by element, not by cp.async), and D = Dv = 256 (in f32
+# the most shared memory a block takes)
 DECODE_SHAPES = [
     ("deepseek-7b unbounded", 8, 2112, 32, 32, 128, 128, 0.0, "prefix"),
     ("deepseek-7b bounded", 8, 512, 32, 32, 128, 128, 0.0, "sparse"),
     ("gemma2-27b window", 1, 8192, 32, 16, 128, 128, 50.0, "window"),
     ("prime", 3, 1021, 8, 2, 96, 64, 30.0, "sparse+empty"),
+    ("mixtral-8x22b heads", 4, 1024, 48, 8, 128, 128, 0.0, "sparse"),
+    ("qwen1.5-110b heads", 4, 1024, 64, 8, 128, 128, 0.0, "prefix"),
+    ("musicgen-medium d64", 8, 512, 24, 24, 64, 64, 0.0, "sparse"),
+    ("short prefix", 8, 2112, 32, 32, 128, 128, 0.0, "short"),
+    ("s17", 3, 17, 8, 2, 128, 128, 0.0, "sparse+empty"),
+    ("g12 d72-dv40", 2, 300, 24, 2, 72, 40, 0.0, "sparse+empty"),
+    ("d34-dv18", 2, 333, 6, 2, 34, 18, 20.0, "sparse+empty"),
+    ("d256", 2, 600, 8, 2, 256, 256, 0.0, "prefix"),
 ]
+# B3's timed cases (bf16): the serve path's two regimes and gemma2-27b's
+# window, each with the L2 cache cold, as a decode step finds it (every
+# layer reads its own cache)
+DECODE_TIMED = ("deepseek-7b unbounded", "deepseek-7b bounded",
+                "gemma2-27b window")
+FLUSH_BYTES = 1 << 29        # 512 MB read between timed launches (L2: 50 MB)
 
 
 def decode_valid(pattern, B, S, gen, dev):
     """valid [B, S]: ``prefix`` as the unbounded serve step builds it
-    (slots <= pos, pos = S - 64 + 8b); ``sparse`` 70% at random; ``window``
-    slots > pos - 4096 at pos = S - 1; ``+empty`` clears the last row."""
+    (slots <= pos, pos = S - 64 + 8b); ``short`` the same with
+    pos = 37 + 9b <= 100; ``sparse`` 70% at random; ``window`` slots
+    > pos - 4096 at pos = S - 1; ``+empty`` clears the last row."""
     import torch
     ar = torch.arange(S, device=dev)[None]
-    if pattern == "prefix":
-        pos = S - 64 + 8 * torch.arange(B, device=dev)[:, None]
+    if pattern in ("prefix", "short"):
+        first = S - 64 if pattern == "prefix" else 37
+        step = 8 if pattern == "prefix" else 9
+        pos = first + step * torch.arange(B, device=dev)[:, None]
         return ar <= pos
     if pattern == "window":
         return (ar > S - 1 - 4096).expand(B, S).contiguous()
@@ -820,6 +892,48 @@ def decode_bound(q, k, v, valid):
               + q.numel() // q.shape[2] * v.shape[3] * q.element_size()
               + 4 * B * S)
     return bytes_ / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def b3_timing(da, q, k, v, valid, cap, flush):
+    """B3 at one timed case: the kernel's ms with L2 cold, its blocks per
+    call (each of its two launches), the bytes its bound counts over the
+    kernel's time, its share of the bound, and the plain version's ms."""
+    B, S = valid.shape
+    H, Hkv, D, Dv = q.shape[1], k.shape[2], q.shape[2], v.shape[3]
+    b_ms, b_by = decode_bound(q, k, v, valid)
+    ms = cold_ms(lambda: da.decode_attention(q, k, v, valid, softcap=cap),
+                 flush, reps=20)
+    return {"shape": [B, S, H, Hkv, D, Dv], "dtype": "bfloat16",
+            "valid_slots": int(valid.sum()), "chunk": da.chunk_len(B, Hkv, S),
+            "blocks_per_call": da.blocks_per_call(B, S, H, Hkv, D, Dv),
+            "ms": ms,
+            "plain_ms": cuda_ms(lambda: da.decode_attention_plain(
+                q, k, v, valid, softcap=cap), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "gb_per_s": b_ms / ms * H100_BYTES_PER_S / 1e9}
+
+
+def b3_dropped_tile(q, k, v, valid, cap):
+    """B3's plain version in f32 with one warp tile's P.V left out of each
+    batch row: the 8 slots (a tile of the kernel: chunks are multiples of
+    8) around the row's middle fetched slot, whose weights stay in the
+    softmax's sum, as a kernel that loses a tile of V would compute it."""
+    import torch
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qf = (q.float() / D ** 0.5).reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    if cap:
+        s = torch.tanh(s / cap) * cap
+    p = torch.softmax(torch.where(valid[:, None, None], s, -1e30), dim=-1)
+    for b in range(B):
+        fetched = valid[b] if bool(valid[b].any()) else torch.ones_like(
+            valid[b])
+        idx = fetched.nonzero()[:, 0]
+        t0 = int(idx[len(idx) // 2]) // 8 * 8
+        p[b, ..., t0:t0 + 8] = 0.0
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return o.reshape(B, H, v.shape[3])
 
 
 def phase_attention(dev):
@@ -875,6 +989,10 @@ def phase_attention(dev):
     torch.cuda.empty_cache()
 
     near_ties = 0
+    flush_buf = torch.ones(FLUSH_BYTES // 4, device=dev)
+
+    def flush():
+        flush_buf.sum()
     for name, B, S, H, Hkv, D, Dv, cap, pattern in DECODE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, H, D), dtype, dev)
@@ -892,6 +1010,22 @@ def phase_attention(dev):
             e_o = close_err(o.float(), po.float(), tol, what + " o")
             e_m = close_err(mass, pm, MASS_TOL, what + " mass")
             err["decode"] = max(err["decode"], e_o, e_m)
+            bf16 = {}
+            if dtype == torch.bfloat16:
+                want32, _ = da.decode_attention_plain(
+                    q.float(), k.float(), v.float(), valid, softcap=cap)
+                scale = bf16_scale(want32)
+                bf16["scaled_err"] = bf16_units(o, want32, scale)
+                if not bf16["scaled_err"] <= B3_BF16_C:
+                    raise Mismatch(f"{what}: o {bf16['scaled_err']} > "
+                                   f"{B3_BF16_C} units of bf16 rounding")
+                bad = b3_dropped_tile(q, k, v, valid, cap).to(dtype)
+                bf16["dropped_tile_scaled_err"] = bf16_units(bad, want32,
+                                                             scale)
+                if not bf16["dropped_tile_scaled_err"] > B3_BF16_C:
+                    raise Mismatch(f"{what}: the bf16 check passes a kernel "
+                                   f"that drops one warp tile's P.V")
+                del want32, scale, bad
             masked = pm.masked_fill(~valid, float("-inf"))
             top2 = masked.topk(2, dim=-1).values
             clear = (top2[:, 0] - top2[:, 1] > MASS_TOL) & valid.any(-1)
@@ -909,28 +1043,29 @@ def phase_attention(dev):
                          "tol": tol, "mass_tol": MASS_TOL,
                          "mass_bit_identical_run_to_run": True,
                          "rows_top_slot_checked": int(clear.sum()),
-                         "rows_within_margin": ties})
-            if name.startswith("deepseek-7b") and dtype == torch.bfloat16:
+                         "rows_within_margin": ties, **bf16})
+            if name in DECODE_TIMED and dtype == torch.bfloat16:
                 if pattern == "sparse":          # as after a bounded fill
                     valid = torch.ones_like(valid)
-                b_ms, b_by = decode_bound(q, k, v, valid)
-                timed[name] = {
-                    "shape": [B, S, H, D], "dtype": "bfloat16",
-                    "valid_slots": int(valid.sum()),
-                    "ms": cuda_ms(lambda: da.decode_attention(
-                        q, k, v, valid, softcap=cap), reps=20),
-                    "plain_ms": cuda_ms(lambda: da.decode_attention_plain(
-                        q, k, v, valid, softcap=cap), reps=5),
-                    "bound_ms": b_ms, "bound_by": b_by}
+                timed[name] = b3_timing(da, q, k, v, valid, cap, flush)
             del q, k, v, o, o2, po
+    # what cold_ms reads for no work at all: the floor under B3's times
+    event_pair_ms = cold_ms(lambda: None, flush, reps=20)
+    del flush_buf
     torch.cuda.empty_cache()
-    b2_bf16 = [r for r in rows if "scaled_err" in r]
+    b2_bf16 = [r for r in rows if "scaled_err" in r and r["kernel"] == "B2"]
+    b3_bf16 = [r for r in rows if "scaled_err" in r and r["kernel"] == "B3"]
     return ({"phase": "attention_kernels", "cases": rows,
              "b2_bf16_scaled_err_max": max(r["scaled_err"] for r in b2_bf16),
              "b2_bf16_dropped_keys_scaled_err_min": min(
                  r["dropped_keys_scaled_err"] for r in b2_bf16),
              "b2_bf16_limit": BF16_C,
-             "b3_rows_within_margin": near_ties, "timed": timed},
+             "b3_bf16_scaled_err_max": max(r["scaled_err"] for r in b3_bf16),
+             "b3_bf16_dropped_tile_scaled_err_min": min(
+                 r["dropped_tile_scaled_err"] for r in b3_bf16),
+             "b3_bf16_limit": B3_BF16_C,
+             "b3_rows_within_margin": near_ties,
+             "b3_event_pair_ms": event_pair_ms, "timed": timed},
             err, timed)
 
 
@@ -951,7 +1086,8 @@ def prompt_tokens(cfg, B, S, dev, n=0):
 def profile_ms(fn, n=1):
     """Run ``fn`` ``n`` times under ``torch.profiler``: host ms per call,
     device-busy ms per call (sum of kernel times; one stream, so kernels do
-    not overlap), the idle share, kernel launches per call and the kernels
+    not overlap), the idle share, B3's device ms per call (its kernels'
+    names hold ``decode_attn``), kernel launches per call and the kernels
     that take most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -974,6 +1110,8 @@ def profile_ms(fn, n=1):
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
     return {"host_ms": wall, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall if wall else None,
+            "b3_device_ms": sum(ms for k, (ms, _) in dev.items()
+                                if "decode_attn" in k),
             "kernel_launches": sum(c for _, c in dev.values()),
             "top_kernels_ms": {k[:60]: ms for k, (ms, _) in top}}
 

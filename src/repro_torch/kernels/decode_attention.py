@@ -13,16 +13,17 @@ called through ``ctypes``.
 
 Besides the output, the call returns the per-slot mass, the mean over the
 H query heads of the softmax weights: the hit signal whose argmax the
-bounded KV pool promotes.  The kernel sums it in a fixed order, so it is
-the same bit for bit from run to run.
+bounded KV pool promotes.  The kernel splits the slot axis across blocks
+(:func:`chunk_len` picks the chunk) and combines the splits in a fixed
+order, so ``o`` and the mass are the same bit for bit from run to run.
 
 :func:`decode_attention_plain` is the plain version (the reference's jnp
 function in torch).  :func:`decode_attention` runs it on CPU tensors; on
 a CUDA tensor it launches the kernel or raises.
 
 ``LAUNCHES`` counts calls that launched the kernel (one call launches the
-attention kernel and the mass reduction after it): :func:`decode_attention`
-adds one where it launches, and nowhere else.
+split kernel and the combine after it): :func:`decode_attention` adds one
+where it launches, and nowhere else.
 """
 from __future__ import annotations
 
@@ -35,9 +36,14 @@ import torch
 from . import _build
 from .flash_attention import NEG_INF, _softcap
 
-__all__ = ["decode_attention", "decode_attention_plain", "LAUNCHES"]
+__all__ = ["decode_attention", "decode_attention_plain", "chunk_len",
+           "blocks_per_call", "LAUNCHES"]
 
 LAUNCHES = 0
+WARP_TILE = 8          # the kernel takes chunks that are a multiple of it
+CHUNK = 256            # slots per split block, where blocks are enough
+MIN_CHUNK = 32         # the chunk rule halves no further
+MIN_BLOCKS = 2 * 132   # two blocks on each of an H100's 132 SMs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,9 +54,39 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("decode_attention")
-    lib.decode_attention_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_F, _F, _P]
+    lib.decode_attention_fwd.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
     lib.decode_attention_fwd.restype = _I
+    lib.decode_attention_grid.argtypes = [_I] * 7 + [_P]
+    lib.decode_attention_grid.restype = _I
     return lib
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def chunk_len(B, Hkv, S):
+    """Slots per split block: ``CHUNK``, halved (down to ``MIN_CHUNK``)
+    while the ``B * Hkv`` (batch row, kv head) pairs would give fewer than
+    ``MIN_BLOCKS`` blocks, and no longer than S rounded up to
+    ``WARP_TILE``.  (On an H100, ``decode_sweep.py``: 256 slots ran best
+    or within 1% of the best where they gave 384 blocks or more, and
+    25-32% slower than 64 where they gave 128; PERF.md.)"""
+    c = CHUNK
+    while c > MIN_CHUNK and B * Hkv * _cdiv(S, c) < MIN_BLOCKS:
+        c //= 2
+    return min(c, _cdiv(S, WARP_TILE) * WARP_TILE)
+
+
+def blocks_per_call(B, S, H, Hkv, D, Dv, chunk=None):
+    """Blocks of a call's two launches, ``[split kernel, combine]``, at
+    ``chunk`` slots a split block (default :func:`chunk_len`'s), asked of
+    the built library."""
+    out = (ctypes.c_int * 2)()
+    status = _lib().decode_attention_grid(
+        B, S, H, Hkv, D, Dv, chunk or chunk_len(B, Hkv, S), out)
+    _build.check(status, "decode_attention_grid")
+    return list(out)
 
 
 def decode_attention_plain(q, k_cache, v_cache, valid, *, softcap=0.0,
@@ -78,7 +114,6 @@ def decode_attention(q, k_cache, v_cache, valid, *, softcap=0.0,
     """One-token attention over a KV slot table: q ``[B, H, D]``, k/v
     ``[B, S, Hkv, D|Dv]`` (bf16 or f32; D, Dv <= 256), valid ``[B, S]``
     bool.  Returns ``(o [B, H, Dv], mass [B, S] f32)``."""
-    global LAUNCHES
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid,
                                       softcap=softcap, scale=scale)
@@ -99,18 +134,31 @@ def decode_attention(q, k_cache, v_cache, valid, *, softcap=0.0,
     for x in (k_cache, v_cache, valid):
         if x.device != q.device:
             raise ValueError(f"tensors on {q.device} and {x.device}")
-    q, k_cache, v_cache = (x.contiguous() for x in (q, k_cache, v_cache))
-    valid = valid.contiguous()
+    return launch(q, k_cache, v_cache, valid, softcap,
+                  scale if scale is not None else 1.0 / math.sqrt(D),
+                  chunk_len(B, Hkv, S))
+
+
+def launch(q, k_cache, v_cache, valid, softcap, scale, chunk):
+    """The kernel on CUDA tensors that :func:`decode_attention` has checked,
+    at ``chunk`` slots a split block (a multiple of ``WARP_TILE``, at most
+    1,024)."""
+    global LAUNCHES
+    q, k_cache, v_cache, valid = (
+        x.contiguous() for x in (q, k_cache, v_cache, valid))
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Dv = v_cache.shape[-1]
     dev = q.device
     o = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
     mass = torch.empty((B, S), dtype=torch.float32, device=dev)
     scores = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    part = torch.empty((B, Hkv, S), dtype=torch.float32, device=dev)
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    part = torch.empty((B, H, _cdiv(S, chunk), Dv + 2), dtype=torch.float32,
+                       device=dev)
     status = _lib().decode_attention_fwd(
         *(_P(x.data_ptr()) for x in (q, k_cache, v_cache, valid, o, mass,
                                      scores, part)),
-        _DTYPES[q.dtype], B, S, H, Hkv, D, Dv, scale,
+        _DTYPES[q.dtype], B, S, H, Hkv, D, Dv, chunk, scale,
         float(softcap or 0.0), _P(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(status, "decode_attention_fwd")
     LAUNCHES += 1
