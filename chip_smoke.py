@@ -19,7 +19,10 @@ Phases, one JSON line each:
    each capacity group of the main path at its lane count and in its mode
    (dac at K=819 is the timed case); for ``dac(growth=4)`` at the large
    state's width (row in device memory) with lanes that grow and shrink;
-   and for ``dac(growth=4)`` and climb on both sides of each dispatch;
+   for ``dac(growth=4)`` and climb on both sides of each dispatch; and,
+   untimed, for dac, ac and climb at Table III's S capacities (K = 8, 16)
+   on its 3 lanes and for dac and ac at the corpus sweep's smallest K on 1
+   lane, in ``run_sweep``'s modes;
 3. the main path: the six dataset families as ``[16, 200000]`` traces
    through ``Engine(device="cuda").replay`` for dac, ac and climb at
    ``K = k_for(footprint, "L")`` (families of one K share a call: 64
@@ -60,7 +63,29 @@ Phases, one JSON line each:
    ``torch.profiler`` (device-busy time, idle share, launches, top kernels);
 7. serve vs plain: the same model at 2 layers in f32, prefill + 8
    teacher-forced steps with the kernels and with their plain versions, in
-   both regimes: logits within 1e-4 and DAC's control state equal.
+   both regimes: logits within 1e-4 and DAC's control state equal;
+8. slot policies: the twelve slot policies (FIFO, LRU, BLRU, LFU, Clock,
+   Sieve, TwoQ, ARC, TinyLFU, Hyperbolic, LIRS, LHD) on the first 4,000
+   requests of every dataset family, 3 seeds, lognormal sizes and fetch
+   costs, at both ``k_for`` regimes (K = 819 / 1,638 for L, 8 / 16 for S;
+   families of one K share a replay): the CUDA graph loop gives the same
+   hits, byte and penalty totals and final state bit for bit as the plain
+   loop on the CPU (worker processes) and, over the first
+   ``SLOT_EAGER_T`` = 1,000 requests, as the eager loop on the card; us
+   per step of the graph and the eager loop; device operations a step
+   (``torch.profiler``) on the first group (``graph_sweep.py`` times other
+   graph sizes);
+9. Table III: ``benchmarks/mrr_table.py``'s grid (15 policies x 6
+   families x {L, S} x 3 seeds, T = ``TABLE_T``) through the port's
+   ``Sweep`` / ``run_sweep`` on the card, one B1 launch per rank-policy
+   cell (36), each rank cell's record equal to that of ``run_sweep`` on
+   the CPU (B1's plain version; worker processes); the payload validated
+   and written to ``chiprun_out/mrr_table.json``; the MRR matrix against
+   FIFO and the winners;
+10. real traces: ``benchmarks/real_traces.py``'s grid (fifo, lru, arc, ac,
+   dac over ``benchmarks/corpus``, K in {S, L}) through ``run_sweep``
+   streamed and materialized: identical records, the rank cells' equal to
+   the CPU's.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -446,7 +471,8 @@ def phase_replay(dev):
     of the main path at its lane count and in its mode (dac at K=819 is
     the timed case of the kernels line); ``dac(growth=4)`` at the large
     state's width, where the row lives in device memory, with lanes that
-    grow and shrink."""
+    grow and shrink; both sides of each size dispatch; Table III's and the
+    corpus sweep's small capacities."""
     import torch
     from repro_torch.core import make_policy
     from repro_torch.data.traces import k_for
@@ -477,8 +503,22 @@ def phase_replay(dev):
                 cases.append((B_big, K, (spec, K), spec,
                               {"collect_info": True, "observe": True}))
 
+    # Table III's and the corpus sweep's small capacities (run_sweep's lane
+    # counts and modes: a lane a seed, no per-step outputs, the corpus
+    # sweep observes), checked and not timed
+    untimed = len(cases)
+    for (regime, K), fams in slot_groups().items():
+        if regime == "S":
+            cases += [(len(TABLE_SEEDS), K, fams[0], spec,
+                       {"collect_info": False, "observe": False})
+                      for spec in ("dac", "ac", "climb")]
+    K_corpus = min(K for *_, K, _ in corpus_sweep().cells())
+    cases += [(1, K_corpus, "alibaba", spec,
+               {"collect_info": False, "observe": True})
+              for spec in ("dac", "ac")]
+
     err, timing, inputs, rows, resizes = 0.0, None, {}, [], [0, 0]
-    for B, K, fam, spec, kw in cases:
+    for i, (B, K, fam, spec, kw) in enumerate(cases):
         pol = make_policy(spec)
         if fam is None or isinstance(fam, tuple):
             cache, sc, reqs = wide[K if fam is None else fam]
@@ -504,7 +544,7 @@ def phase_replay(dev):
             k = got.obs[..., 2]
             resizes[0] += int((k > K).any(1).sum())
             resizes[1] += int((k < K).any(1).sum())
-        if B == 8:
+        if B == 8 or i >= untimed:
             continue
         info = got if kw["collect_info"] and kw["observe"] else \
             ps.policy_replay(*args, collect_info=True, observe=True)
@@ -524,6 +564,8 @@ def phase_replay(dev):
         raise Mismatch(f"large-state replay lanes did not grow and shrink "
                        f"(lanes grown {resizes[0]}, shrunk {resizes[1]})")
     return ({"phase": "kernel_vs_plain_replay", "runs": len(cases),
+             "untimed": [{"lanes": B, "K": K, "spec": spec, **kw}
+                         for B, K, _, spec, kw in cases[untimed:]],
              "max_abs_err": err, "large_state_lanes_grown": resizes[0],
              "large_state_lanes_shrunk": resizes[1], "timed": rows},
             err, timing)
@@ -544,7 +586,8 @@ def main_groups():
     return groups
 
 
-# FIFO is plain torch, a Python loop over T (~270 us a step, host bound):
+# FIFO is plain torch, its time loop a CUDA graph of GRAPH_CHUNK steps
+# (29-37 us a step on an H100, PERF.md §5; the eager loop took ~270 us):
 # it replays the first FIFO_T requests of each trace, and MRR compares
 # every policy over that same prefix; the rank policies also replay the
 # whole trace, which is the main path's timed run
@@ -1307,6 +1350,356 @@ def phase_serve_vs_plain(dev):
             "steps": steps, "budget": SERVE_BUDGET, **out}
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the slot policies' graph loop, Table III, the real traces
+# ---------------------------------------------------------------------------
+
+SLOT_POLICIES = ("fifo", "lru", "blru", "lfu", "clock", "sieve", "twoq",
+                 "arc", "tinylfu", "hyperbolic", "lirs", "lhd")
+SLOT_T = 4_000
+# the eager loop replays the first SLOT_EAGER_T requests only: it is host
+# bound (0.2-4.2 ms a step, PERF.md §5); the graph replays those too
+SLOT_EAGER_T = 1_000
+SLOT_SEEDS = 3
+# Table III at the reference's T = 60,000 if the phase fits in 420 s on the
+# card, else 20,000 (PERF.md §4 records the choice and the measurement)
+TABLE_T = 20_000
+TABLE_SEEDS = (0, 1, 2)
+# benchmarks/mrr_table.py's row order
+TABLE_POLICIES = (
+    "dynamicadaptiveclimb", "adaptiveclimb", "sieve", "arc", "tinylfu",
+    "twoq", "lirs", "lhd", "lfu", "hyperbolic", "clock", "climb", "lru",
+    "blru", "fifo")
+RANK_POLICIES = ("dynamicadaptiveclimb", "adaptiveclimb", "climb")
+
+
+def slot_groups():
+    """(regime, K) -> the dataset families of that capacity: one replay
+    per (group, policy) takes all their lanes."""
+    from repro_torch.data.traces import (DATASET_FAMILIES, family_footprint,
+                                         k_for)
+    groups = {}
+    for regime in ("L", "S"):
+        for fam in DATASET_FAMILIES:
+            K = k_for(family_footprint(fam), regime)
+            groups.setdefault((regime, K), []).append(fam)
+    return groups
+
+
+def slot_inputs(fams, T, seeds):
+    """Host ``[len(fams) * seeds, T]`` keys, lognormal sizes and fetch
+    costs: the first ``T`` requests of each family's traces."""
+    import numpy as np
+    from repro_torch.data.traces import (family_batch, family_footprint,
+                                         fetch_costs, object_sizes)
+    cols = [[], [], []]
+    for fam in fams:
+        k = family_batch(fam, T, seeds=range(seeds))
+        table = object_sizes(family_footprint(fam), seed=1)
+        for col, x in zip(cols, (k, table[k], fetch_costs(table)[k])):
+            col.append(x)
+    return [np.concatenate(c) for c in cols]
+
+
+def cpu_slot_replay(spec, K, cols):
+    """The plain loop on the CPU (a worker process): metrics-only replay,
+    returns (totals, final state) as numpy."""
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import Request, make_policy, replay_lanes
+    pol = make_policy(spec)
+    reqs = Request.of(*cols, device="cpu")
+    res, st = replay_lanes(pol, reqs, pol.init(K, reqs.key.shape[0], "cpu"),
+                           collect_info=False)
+    return ([x.numpy() for x in res.metrics],
+            {k: v.numpy() for k, v in st.items()})
+
+
+def equal_runs(a, b, what):
+    """Totals and final state of two replays, bit for bit."""
+    import numpy as np
+    (ma, sa), (mb, sb) = a, b
+    for f, x, y in zip(("requests", "hits", "bytes_total", "bytes_missed",
+                        "cost_total", "penalty"), ma, mb):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise Mismatch(f"{what}: {f} differs: {x} vs {y}")
+    if set(sa) != set(sb):
+        raise Mismatch(f"{what}: state keys {sorted(sa)} vs {sorted(sb)}")
+    for k in sa:
+        if sa[k].dtype != sb[k].dtype or not np.array_equal(sa[k], sb[k]):
+            raise Mismatch(f"{what}: final state {k!r} differs")
+
+
+def cpu_workers():
+    """A pool of spawned worker processes for the plain CPU runs, which go
+    on while the card works; two cores stay with the main process."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        max(1, min(6, (os.cpu_count() or 2) - 2)),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+def slot_replay(spec, K, reqs, chunk, dev):
+    """A metrics-only replay of ``spec`` from its initial state at ``chunk``
+    steps a CUDA graph (0: the eager loop).  Returns (totals and final
+    state as numpy, host seconds, the seconds of graph capture in them)."""
+    import torch
+    from repro_torch.core import make_policy, replay_lanes
+    from repro_torch.core import simulator as sim
+    captures, capture = [], sim._capture
+
+    def timed_capture(body):
+        t0 = time.perf_counter()
+        out = capture(body)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0)
+        return out
+
+    pol = make_policy(spec)
+    st = pol.init(K, lanes=reqs.key.shape[0], device=dev)
+    sim._capture = timed_capture
+    try:
+        (res, st), s = host_s(lambda: replay_lanes(
+            pol, reqs, st, collect_info=False, chunk=chunk))
+    finally:
+        sim._capture = capture
+    return (([x.cpu().numpy() for x in res.metrics],
+             {k: v.cpu().numpy() for k, v in st.items()}),
+            s, sum(captures))
+
+
+def kernels_a_step(pol, K, reqs, dev):
+    """Device operations (kernels, copies, fills) a step of ``pol``'s
+    eager loop, which the graph loop captures node for node: counted by
+    ``torch.profiler`` over 16 and over 48 steps, the difference over 32
+    (so the replay's fixed set-up drops out)."""
+    from repro_torch.core import Request, replay_lanes
+    n = {}
+    for T in (16, 48):
+        head = Request(*(x[:, :T].contiguous() for x in reqs))
+        n[T] = profile_ms(lambda: replay_lanes(
+            pol, head, pol.init(K, lanes=head.key.shape[0], device=dev),
+            collect_info=False, chunk=0))["kernel_launches"]
+    return (n[48] - n[16]) / 32
+
+
+def phase_slot(dev):
+    """The twelve slot policies on every dataset family (first SLOT_T
+    requests, SLOT_SEEDS seeds, both regimes): the graph loop on the card
+    gives the same totals and final state bit for bit as the plain loop on
+    the CPU (in worker processes, meanwhile) and, over the first
+    SLOT_EAGER_T requests, as the eager loop on the card.  Times the graph
+    and the eager loop and counts the device operations a step.  Returns a
+    row per policy and group."""
+    from repro_torch.core import Request, make_policy
+    from repro_torch.core import simulator as sim
+
+    groups = slot_groups()
+    host = {g: slot_inputs(fams, SLOT_T, SLOT_SEEDS)
+            for g, fams in groups.items()}
+    jobs = sorted(((spec, g) for g in groups for spec in SLOT_POLICIES),
+                  key=lambda j: SLOT_POLICIES.index(j[0]), reverse=True)
+    rows = []
+    with cpu_workers() as pool:
+        cpu = {j: pool.submit(cpu_slot_replay, j[0], j[1][1], host[j[1]])
+               for j in jobs}
+        for g, fams in groups.items():
+            regime, K = g
+            reqs = Request.of(*host[g], device=dev)
+            head = Request(*(x[:, :SLOT_EAGER_T].contiguous() for x in reqs))
+            B = reqs.key.shape[0]
+            for spec in SLOT_POLICIES:
+                graph, g_s, cap_s = slot_replay(spec, K, reqs,
+                                                sim.GRAPH_CHUNK, dev)
+                graph_head, _, _ = slot_replay(spec, K, head,
+                                               sim.GRAPH_CHUNK, dev)
+                eager, e_s, _ = slot_replay(spec, K, head, 0, dev)
+                equal_runs(graph_head, eager, f"{spec} {g}: graph vs eager")
+                row = {"policy": spec, "regime": regime, "K": K,
+                       "lanes": B, "T": SLOT_T, "eager_T": SLOT_EAGER_T,
+                       "chunk": sim.GRAPH_CHUNK,
+                       "graph_us_per_step": (g_s - cap_s) * 1e6 / SLOT_T,
+                       "graph_capture_s": cap_s, "graph_s": g_s,
+                       "eager_us_per_step": e_s * 1e6 / SLOT_EAGER_T,
+                       "miss_ratio": float(
+                           1 - graph[0][1].sum() / graph[0][0].sum())}
+                if g == next(iter(groups)):
+                    row["device_ops_per_step"] = kernels_a_step(
+                        make_policy(spec), K, reqs, dev)
+                rows.append(row)
+                equal_runs(graph, cpu[spec, g].result(),
+                           f"{spec} {g}: graph vs cpu")
+    return rows
+
+
+def cpu_rank_records(sweep, scenario, T=None):
+    """The rank-policy cells of one scenario of Table III (``sweep`` =
+    "table", at ``T``) or of the corpus sweep ("corpus") through
+    ``run_sweep`` on the CPU, where B1's wrapper runs its plain version (a
+    worker process): the records without ``wall_s``."""
+    import dataclasses
+
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.bench import run_sweep
+    from repro_torch.core import Engine
+    sw = table_sweep(T) if sweep == "table" else corpus_sweep()
+    sw = dataclasses.replace(
+        sw, policies=tuple(p for p in sw.policies if p in RANK_POLICIES),
+        scenarios=tuple(sc for sc in sw.scenarios if sc.name == scenario))
+    res = run_sweep(sw, engine=Engine(device="cpu"), stream=False)
+    return [no_wall(r) for r in res.records]
+
+
+def no_wall(rec):
+    return {k: v for k, v in rec.items() if k != "wall_s"}
+
+
+def rank_cells_vs_cpu(records, cpu, what):
+    """Every rank-policy record of the card's sweep equals the plain
+    version's record from the CPU (futures of ``cpu_rank_records``), bit
+    for bit; returns how many were compared."""
+    want = {(r["policy"], r["scenario"], r["K"]): r
+            for f in cpu for r in f.result()}
+    got = [no_wall(r) for r in records if r["policy"] in RANK_POLICIES]
+    if len(got) != len(want):
+        raise Mismatch(f"{what}: {len(got)} rank cells on the card, "
+                       f"{len(want)} on the CPU")
+    for r in got:
+        w = want.get((r["policy"], r["scenario"], r["K"]))
+        if r != w:
+            raise Mismatch(f"{what} {r['scenario']} {r['policy']} "
+                           f"K={r['K']}: card {r['metrics']} vs plain on "
+                           f"the CPU {w and w['metrics']}")
+    return len(got)
+
+
+def table_sweep(T):
+    from repro_torch.bench import Scenario, Sweep
+    from repro_torch.data.traces import DATASET_FAMILIES
+    return Sweep("mrr_table", policies=TABLE_POLICIES,
+                 scenarios=tuple(Scenario(ds, trace=ds, T=T, K=("L", "S"))
+                                 for ds in DATASET_FAMILIES),
+                 seeds=TABLE_SEEDS)
+
+
+def phase_table(dev, T=TABLE_T):
+    """Table III through the port's normal entry points: the mrr_table
+    grid (15 policies x 6 families x {L, S} x 3 seeds) through
+    ``run_sweep`` on the card, one B1 launch per rank-policy cell, each
+    rank cell's record equal to the plain version's on the CPU (worker
+    processes, meanwhile); the payload validated and written to
+    chiprun_out/; the MRR matrix and the winners.  Returns (summary, B1
+    launches)."""
+    import math
+
+    import torch
+    from repro_torch.bench import report, results, run_sweep
+    from repro_torch.core import Engine
+    from repro_torch.kernels import policy_step as ps
+
+    sw = table_sweep(T)
+    with cpu_workers() as pool:
+        cpu = [pool.submit(cpu_rank_records, "table", sc.name, T)
+               for sc in sw.scenarios]
+        torch.cuda.synchronize()
+        ps.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = run_sweep(sw, engine=Engine(device=dev))
+        seconds = time.perf_counter() - t0
+        launches = ps.LAUNCHES
+        vs_cpu = rank_cells_vs_cpu(res.records, cpu, "Table III")
+    rank_cells = sum(1 for pol, *_ in sw.cells() if pol in RANK_POLICIES)
+    if launches != rank_cells:
+        raise AssertionError(
+            f"Table III: policy_replay launched {launches} times; expected "
+            f"one per rank-policy cell ({rank_cells})")
+    if len(res.records) != len(list(sw.cells())):
+        raise AssertionError("Table III: a cell has no record")
+    for rec in res.records:
+        for name, vals in rec["metrics"].items():
+            if len(vals) != len(TABLE_SEEDS) or not all(
+                    math.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+                raise AssertionError(f"Table III: {rec['policy']} "
+                                     f"{rec['scenario']} {name}: {vals}")
+    table = report.mrr_matrix(res.records, TABLE_POLICIES, baseline="fifo")
+    wins = report.winners(res.records, TABLE_POLICIES)
+    if any(col["fifo"] != 0.0 for col in table.values()):
+        raise AssertionError("Table III: FIFO's MRR against itself is not 0")
+    payload = res.payload(extras={"table": table, "winners": wins})
+    results.validate(payload)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    results.save(payload, results_dir=str(ROOT / "chiprun_out"))
+    cell_s = {}
+    for rec in res.records:
+        cell_s[rec["policy"]] = cell_s.get(rec["policy"], 0.0) + rec["wall_s"]
+    return ({"phase": "table3", "T": T, "seeds": list(TABLE_SEEDS),
+             "cells": len(res.records), "s": seconds,
+             "policy_replay": launches, "rank_cells_equal_cpu": vs_cpu,
+             "policy_s": cell_s,
+             "mrr": table, "winners": wins}, launches)
+
+
+def corpus_sweep():
+    from repro_torch.bench import Scenario, Sweep
+    from repro_torch.data.ingest import characterize, detect_format
+    corpus = ROOT / "benchmarks" / "corpus"
+    scenarios = []
+    for path in sorted(corpus.iterdir()):
+        try:
+            detect_format(str(path))
+        except ValueError:
+            continue
+        # the .bin/.bin.gz pair holds the same trace: keep the gzipped one
+        if path.name.endswith(".oracleGeneral.bin") and \
+                path.with_name(path.name + ".gz").exists():
+            continue
+        scenarios.append(Scenario(
+            path.name.split(".")[0], trace=f"file(path={path})",
+            T=characterize(str(path)).n_requests, K=("S", "L")))
+    return Sweep("real_traces", policies=(
+        "fifo", "lru", "arc", "adaptiveclimb", "dynamicadaptiveclimb"),
+        scenarios=tuple(scenarios), seeds=(0,), observe=True)
+
+
+def phase_corpus(dev):
+    """benchmarks/real_traces.py's grid over the committed corpus through
+    ``run_sweep`` streamed and materialized on the card: identical
+    records, and each rank cell's equal to the plain version's on the CPU
+    (worker processes).  Returns (summary, B1 launches)."""
+    from repro_torch.bench import run_sweep
+    from repro_torch.core import Engine
+    from repro_torch.kernels import policy_step as ps
+
+    sw = corpus_sweep()
+    with cpu_workers() as pool:
+        cpu = [pool.submit(cpu_rank_records, "corpus", sc.name)
+               for sc in sw.scenarios]
+        ps.LAUNCHES = 0
+        streamed = run_sweep(sw, engine=Engine(device=dev), stream=True)
+        launches = ps.LAUNCHES
+        ps.LAUNCHES = 0
+        whole = run_sweep(sw, engine=Engine(device=dev), stream=False)
+        launches += ps.LAUNCHES
+        vs_cpu = rank_cells_vs_cpu(whole.records, cpu, "corpus")
+    rows = []
+    for a, b in zip(streamed.records, whole.records):
+        if no_wall(a) != no_wall(b):
+            raise Mismatch(f"corpus {a['scenario']} {a['policy']} "
+                           f"K={a['K']}: streamed {a['metrics']} vs "
+                           f"materialized {b['metrics']}")
+        rows.append({"scenario": a["scenario"], "policy": a["policy"],
+                     "K": a["K"], **{k: v[0] for k, v in
+                                     a["metrics"].items()}})
+    return ({"phase": "real_traces", "cells": len(rows),
+             "policy_replay": launches, "rank_cells_equal_cpu": vs_cpu,
+             "rows": rows}, launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1350,13 +1743,28 @@ def main() -> int:
     serve = phase_serve(dev)
     emit(serve)
     emit(phase_serve_vs_plain(dev))
+    t0 = time.perf_counter()
+    rows = phase_slot(dev)
+    for row in rows:
+        emit({"phase": "slot_policy", **row})
+    emit({"phase": "slot_policies",
+          "equal": "graph = cpu (T), graph = eager (eager_T)",
+          "policies": len(SLOT_POLICIES), "groups": len(slot_groups()),
+          "T": SLOT_T, "eager_T": SLOT_EAGER_T, "seeds": SLOT_SEEDS,
+          "s": time.perf_counter() - t0})
+    res, table_launches = phase_table(dev)
+    emit(res)
+    res, corpus_launches = phase_corpus(dev)
+    emit(res)
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
         "name": "policy_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
         "replaces": "src/repro/kernels/policy_step.py:247",
-        "launches": launches, "max_abs_err": err,
+        # the main path's replays, Table III's and the corpus sweeps'
+        "launches": launches + table_launches + corpus_launches,
+        "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {

@@ -19,7 +19,11 @@ Ported so far:
 * the paper's trace replay: ``make_policy`` -> ``Engine.replay`` -> miss
   ratios -> ``mrr`` against FIFO, for Climb, AdaptiveClimb and
   DynamicAdaptiveClimb (hand-written Hopper kernel
-  ``kernels/csrc/policy_step.cu``) and FIFO/LRU (plain torch);
+  ``kernels/csrc/policy_step.cu``) and the twelve slot policies (plain
+  torch; on CUDA their time loop is a CUDA graph of a chunk of steps);
+* the sweep and report layer (``bench``: ``Scenario``, ``Sweep``,
+  ``run_sweep``, the MRR tables) and the trace registry and real-trace
+  ingestion (``data``), so the paper's Table III runs on the card;
 * serving of the dense attention LMs (``configs``, ``models``,
   ``serving``, ``launch.serve``): prefill and decode with an unbounded KV
   cache or the DAC-bounded slot pool, attention on the hand-written

@@ -1,4 +1,4 @@
-"""The paper's rank policies, the FIFO/LRU baselines and the replay engine
+"""The paper's rank policies, the twelve baselines and the replay engine
 (port of ``repro.core``)::
 
     policy = make_policy("dac(eps=0.5,growth=4)")
@@ -7,8 +7,10 @@
 """
 from ..specs import build_kwargs, parse_spec
 from .adaptiveclimb import AdaptiveClimb
-from .baselines import FIFO, LRU, Climb
+from .baselines import (ARC, BLRU, FIFO, LFU, LRU, Climb, Clock, Hyperbolic,
+                        Sieve, TinyLFU, TwoQ)
 from .dynamicadaptiveclimb import DynamicAdaptiveClimb
+from .lirs_lhd import LHD, LIRS
 from .policy import (EMPTY, LANE, Plan, Policy, RankPolicy, Request,
                      StepInfo, lane_pad, padded_row, rank_step, step_info)
 from .simulator import (Engine, Metrics, ReplayResult, miss_ratio, mrr,
@@ -19,20 +21,27 @@ POLICIES = {
     "dynamicadaptiveclimb": DynamicAdaptiveClimb,
     "fifo": FIFO,
     "lru": LRU,
+    "blru": BLRU,
     "climb": Climb,
+    "lfu": LFU,
+    "clock": Clock,
+    "sieve": Sieve,
+    "twoq": TwoQ,
+    "arc": ARC,
+    "lirs": LIRS,
+    "lhd": LHD,
+    "tinylfu": TinyLFU,
+    "hyperbolic": Hyperbolic,
 }
 
 ALIASES = {
     "ac": "adaptiveclimb",
     "dac": "dynamicadaptiveclimb",
+    "2q": "twoq",
 }
 
 # reference registry names that later slices port, with their ROADMAP item
-_UNPORTED = {
-    **dict.fromkeys(("blru", "lfu", "clock", "sieve", "twoq", "2q", "arc",
-                     "lirs", "lhd", "tinylfu", "hyperbolic"), "A6"),
-    "admit": "A8",
-}
+_UNPORTED = {"admit": "A8"}
 
 
 def make_policy(spec) -> Policy:
@@ -41,10 +50,16 @@ def make_policy(spec) -> Policy:
 
     >>> make_policy("dac(eps=0.25,growth=2)")
     DynamicAdaptiveClimb(eps=0.25, growth=2, k_min=2)
-    >>> make_policy("arc")
+    >>> make_policy("2q").name           # aliases resolve
+    'twoq'
+    >>> make_policy("dac(nope=1)")
     Traceback (most recent call last):
         ...
-    ValueError: policy 'arc' is not ported yet (ROADMAP.md queue A, item A6); ported: ['adaptiveclimb', 'climb', 'dynamicadaptiveclimb', 'fifo', 'lru']
+    ValueError: unknown parameter 'nope' for policy 'dynamicadaptiveclimb'; accepts: ['eps', 'growth', 'k_min']
+    >>> make_policy("admit(dac,filter=tinylfu)")
+    Traceback (most recent call last):
+        ...
+    ValueError: policy 'admit' is not ported yet (ROADMAP.md queue A, item A8); ported: ['adaptiveclimb', 'arc', 'blru', 'climb', 'clock', 'dynamicadaptiveclimb', 'fifo', 'hyperbolic', 'lfu', 'lhd', 'lirs', 'lru', 'sieve', 'tinylfu', 'twoq']
     """
     if isinstance(spec, Policy):
         return spec
@@ -57,13 +72,15 @@ def make_policy(spec) -> Policy:
     if name not in POLICIES:
         raise ValueError(
             f"unknown policy {name!r}; known: {sorted(POLICIES)} "
-            f"(aliases: {sorted(ALIASES)})")
+            f"(aliases: {sorted(ALIASES)}; combinator: admit(<policy>,...))")
     cls = POLICIES[name]
     return cls(**build_kwargs("policy", name, cls.__init__, argstr))
 
 
 __all__ = [
-    "AdaptiveClimb", "DynamicAdaptiveClimb", "Climb", "FIFO", "LRU",
+    "AdaptiveClimb", "DynamicAdaptiveClimb",
+    "ARC", "BLRU", "Clock", "Climb", "FIFO", "Hyperbolic", "LFU", "LHD",
+    "LIRS", "LRU", "Sieve", "TinyLFU", "TwoQ",
     "EMPTY", "LANE", "Plan", "Policy", "RankPolicy", "Request", "StepInfo",
     "step_info", "rank_step", "lane_pad", "padded_row",
     "POLICIES", "ALIASES", "make_policy",

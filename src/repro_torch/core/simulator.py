@@ -10,10 +10,16 @@ Hit, byte-miss and penalty totals are reduced on the device per lane.
 
 On CUDA the three rank policies replay a whole ``[B, T]`` block in **one
 kernel launch** (``kernels.policy_step.policy_replay``: the time loop runs
-inside the kernel, in place of the reference's ``lax.scan``).  FIFO and LRU
-run as plain torch over the lane axis with a Python loop over ``T``, as the
-reference has no kernel for them.  On the CPU the rank policies run the
-kernel's plain version.
+inside the kernel, in place of the reference's ``lax.scan``).  The twelve
+slot policies are plain torch over the lane axis, as the reference has no
+kernel for them; on CUDA their time loop is a CUDA graph of ``chunk``
+steps (the step plus the metric accumulation, or the writes of each step's
+info), captured once per replay over a static ``[B, chunk]`` request
+buffer and replayed once per chunk, with the last ``T % chunk`` steps run
+eagerly: the counterpart of ``lax.scan`` compiling the step into one
+device loop.  A capture that fails raises; nothing falls back to the
+eager loop.  On the CPU every policy runs the plain loop (the rank
+policies the kernel's plain version).
 
 Counts (``requests``/``hits``) are int64 (the reference counts in int32
 unless x64 is on; torch has no such switch).  Byte and cost totals are
@@ -32,7 +38,13 @@ import torch
 from .policy import Policy, RankPolicy, Request, StepInfo
 
 __all__ = ["Engine", "Metrics", "ReplayResult", "replay_lanes",
-           "miss_ratio", "mrr"]
+           "miss_ratio", "mrr", "GRAPH_CHUNK"]
+
+# steps per CUDA graph of a slot policy's replay: on an H100 32 steps ran
+# within 2% of 16 for most slot policies, from 4% slower to 34% faster
+# than 128, and 512 ran 1.4-2.8x slower (PERF.md; graph_sweep.py times
+# the sizes)
+GRAPH_CHUNK = 32
 
 
 class Metrics(NamedTuple):
@@ -117,12 +129,14 @@ def _zero_acc(B, device):
 
 
 def _acc_step(acc: Metrics, req: Request, info: StepInfo) -> Metrics:
-    """Fold one request's StepInfo into the running totals."""
+    """Fold one request's StepInfo into the running totals (each add
+    promotes its int or bool operand to the total's type: one kernel, the
+    same value as a conversion first)."""
     return Metrics(
         requests=acc.requests + 1,
-        hits=acc.hits + info.hit.to(torch.int64),
-        bytes_total=acc.bytes_total + req.size.to(torch.float32),
-        bytes_missed=acc.bytes_missed + info.bytes_missed.to(torch.float32),
+        hits=acc.hits + info.hit,
+        bytes_total=acc.bytes_total + req.size,
+        bytes_missed=acc.bytes_missed + info.bytes_missed,
         cost_total=acc.cost_total + req.cost,
         penalty=acc.penalty + info.penalty,
     )
@@ -141,15 +155,98 @@ def _sum_metrics(reqs: Request, info: StepInfo) -> Metrics:
     )
 
 
-def _stack_info(infos, reqs):
-    if not infos:
-        B = reqs.key.shape[0]
-        dev = reqs.key.device
-        return StepInfo(torch.empty((B, 0), dtype=torch.bool, device=dev),
-                        *(torch.empty((B, 0), dtype=dt, device=dev)
-                          for dt in (torch.int32, torch.int32,
+def _sinks(policy, state, B, n, device, collect_info, want_obs):
+    """Preallocated ``[B, n]`` per-step outputs: each step's info (with
+    ``collect_info``) and observables (with ``observe``)."""
+    info = None
+    if collect_info:
+        info = StepInfo(*(torch.empty((B, n), dtype=dt, device=device)
+                          for dt in (torch.bool, torch.int32, torch.int32,
                                      torch.float32)))
-    return StepInfo(*(torch.stack(f, 1) for f in zip(*infos)))
+    obs = None
+    if want_obs:
+        obs = {k: torch.empty((B, n), dtype=v.dtype, device=device)
+               for k, v in policy.observables(state).items()}
+    return info, obs
+
+
+def _steps(policy, reqs: Request, state, acc, sinks, at=0, want_obs=False):
+    """``policy.step`` over the columns of ``reqs`` (``[B, n]``) from
+    ``state``: each request folds into ``acc`` (unless it is ``None``) and
+    its info and observables go to column ``at + s`` of ``sinks``.
+    Returns ``(state, acc)``.  Every loop of the slot policies, eager or
+    captured, is this one."""
+    info_out, obs_out = sinks
+    for s in range(reqs.key.shape[1]):
+        req = Request(reqs.key[:, s], reqs.size[:, s], reqs.cost[:, s])
+        state, info = policy.step(state, req)
+        if acc is not None:
+            acc = _acc_step(acc, req, info)
+        if info_out is not None:
+            for buf, x in zip(info_out, info):
+                buf[:, at + s] = x
+        if want_obs:
+            for k, v in policy.observables(state).items():
+                obs_out[k][:, at + s] = v
+    return state, acc
+
+
+def _capture(body):
+    """Capture ``body()`` into a CUDA graph (nothing runs yet); returns the
+    graph's replay."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph.replay
+
+
+def _replay_graphed(policy, reqs: Request, state, acc, sinks, want_obs,
+                    chunk):
+    """The slot-policy loop on CUDA: one graph of ``chunk`` steps, captured
+    over static request, state and total buffers and replayed per chunk;
+    the tail runs eagerly.  Returns ``(state, acc)``."""
+    T = reqs.key.shape[1]
+    n_full = T // chunk
+    if n_full:
+        B, dev = reqs.key.shape[0], reqs.key.device
+        static_req = Request(*(torch.empty((B, chunk), dtype=x.dtype,
+                                           device=dev) for x in reqs))
+        static_state = {k: v.clone() for k, v in state.items()}
+        static_acc = None if acc is None else Metrics(
+            *(x.clone() for x in acc))
+        static_sinks = _sinks(policy, state, B, chunk, dev,
+                              sinks[0] is not None, want_obs)
+        # one eager step on copies first, so that every kernel the step
+        # launches is loaded before the capture
+        _steps(policy, Request(*(x[:, :1] for x in reqs)),
+               {k: v.clone() for k, v in state.items()}, static_acc,
+               (None, None))
+
+        def body():
+            st, a = _steps(policy, static_req, static_state, static_acc,
+                           static_sinks, want_obs=want_obs)
+            for k, v in st.items():
+                static_state[k].copy_(v)
+            if a is not None:
+                for x, y in zip(static_acc, a):
+                    x.copy_(y)
+
+        replay = _capture(body)
+        for c in range(n_full):
+            lo, hi = c * chunk, (c + 1) * chunk
+            for x, y in zip(static_req, reqs):
+                x.copy_(y[:, lo:hi])
+            replay()
+            if static_sinks[0] is not None:
+                for x, y in zip(sinks[0], static_sinks[0]):
+                    x[:, lo:hi] = y
+            if want_obs:
+                for k, y in static_sinks[1].items():
+                    sinks[1][k][:, lo:hi] = y
+        state, acc = static_state, static_acc
+    tail = Request(*(x[:, n_full * chunk:] for x in reqs))
+    return _steps(policy, tail, state, acc, sinks, at=n_full * chunk,
+                  want_obs=want_obs)
 
 
 def _replay_rank(policy: RankPolicy, reqs, state, want_obs, collect_info):
@@ -177,31 +274,31 @@ def _replay_rank(policy: RankPolicy, reqs, state, want_obs, collect_info):
 
 
 def replay_lanes(policy: Policy, reqs: Request, state: dict, *,
-                 observe: bool = False, collect_info: bool = True):
+                 observe: bool = False, collect_info: bool = True,
+                 chunk: int | None = None):
     """Replay a ``[B, T]`` request block from ``state`` (``[B, ...]``
     lanes); returns ``(ReplayResult, final_state)``.  The counterpart of the
     reference's ``_scan_replay``: :class:`Engine` builds on it, and a state
     carried in from the reference (``state_io.state_from_reference``)
-    continues here."""
+    continues here.  ``chunk`` sets the steps per CUDA graph of a slot
+    policy on CUDA (default :data:`GRAPH_CHUNK`; 0 runs the eager loop);
+    the CPU and the rank policies ignore it."""
     want_obs = observe and hasattr(policy, "observables")
     if isinstance(policy, RankPolicy):
         return _replay_rank(policy, reqs, state, want_obs, collect_info)
     B, T = reqs.key.shape
-    acc = _zero_acc(B, reqs.key.device)
-    infos, obs = [], []
-    for s in range(T):
-        req = Request(reqs.key[:, s], reqs.size[:, s], reqs.cost[:, s])
-        state, info = policy.step(state, req)
-        if collect_info:
-            infos.append(info)
-        else:
-            acc = _acc_step(acc, req, info)
-        if want_obs:
-            obs.append(policy.observables(state))
-    obs = ({k: torch.stack([o[k] for o in obs], 1) for k in obs[0]}
-           if obs else None)
+    dev = reqs.key.device
+    acc = None if collect_info else _zero_acc(B, dev)
+    sinks = _sinks(policy, state, B, T, dev, collect_info, want_obs)
+    chunk = GRAPH_CHUNK if chunk is None else int(chunk)
+    if dev.type == "cuda" and chunk > 0:
+        state, acc = _replay_graphed(policy, reqs, state, acc, sinks,
+                                     want_obs, chunk)
+    else:
+        state, acc = _steps(policy, reqs, state, acc, sinks,
+                            want_obs=want_obs)
+    info, obs = sinks
     if collect_info:
-        info = _stack_info(infos, reqs)
         return ReplayResult(info, _sum_metrics(reqs, info), obs), state
     return ReplayResult(None, acc, obs), state
 

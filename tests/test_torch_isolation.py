@@ -57,7 +57,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "decode_sweep.py",
+                            ROOT / "graph_sweep.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
@@ -133,3 +134,97 @@ def test_shape_cells_equal_reference():
         == {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
     with pytest.raises(KeyError):
         port_configs.get_arch("no-such-arch")
+
+
+from repro.data import ingest as ri  # noqa: E402
+from repro_torch.data import ingest as pi  # noqa: E402
+
+CORPUS = sorted((ROOT / "benchmarks" / "corpus").iterdir())
+
+
+@pytest.mark.parametrize("seed", (0, 3))
+def test_whole_trace_module_copy_equals_reference(seed):
+    """The generators the first copy lacked, on seeded inputs."""
+    cases = [
+        ("tenants_trace", dict(N=64, T=500, n_tenants=3)),
+        ("fleet_trace", dict(N=64, T=600, n_lanes=3, rate=0.05,
+                             mean_session=80)),
+        ("flood_trace", dict(N=64, T=500, alpha=0.9)),
+        ("scanstorm_trace", dict(N=64, T=700, alpha=0.9, mean_phase=200,
+                                 scan_len=32)),
+        ("diurnal_trace", dict(N=64, T=500, period=128)),
+        ("thrash_trace", dict(N=64, T=500, loop=40)),
+    ]
+    for name, kw in cases:
+        np.testing.assert_array_equal(getattr(pt, name)(seed=seed, **kw),
+                                      getattr(rt, name)(seed=seed, **kw),
+                                      err_msg=name)
+    np.testing.assert_array_equal(pt.bimodal_sizes(300, seed=seed, split=90),
+                                  rt.bimodal_sizes(300, seed=seed, split=90))
+    np.testing.assert_array_equal(pt.dataset_family("metakv", T=300,
+                                                    n_traces=2, seed=seed),
+                                  rt.dataset_family("metakv", T=300,
+                                                    n_traces=2, seed=seed))
+
+
+def test_trace_registry_copy_equals_reference():
+    assert sorted(pt.TRACES) == sorted(rt.TRACES)
+    assert pt.TRACE_ALIASES == rt.TRACE_ALIASES
+    assert (pt.COLD_RANGE_FAMILIES, pt.TIER_FAMILIES, pt.FLEET_FAMILIES) == \
+        (rt.COLD_RANGE_FAMILIES, rt.TIER_FAMILIES, rt.FLEET_FAMILIES)
+    specs = ["zipf(N=128,alpha=1.0)", "wiki", "tencent(alpha=0.8)",
+             "tenants(N=64,n_tenants=2)", "fleet(N=64,n_lanes=3)",
+             "flood(N=64,alpha=0.9)", "scanstorm(N=64,alpha=1)",
+             "diurnal(N=64)", "thrash(N=64,loop=9)",
+             "file(path=benchmarks/corpus/kv.csv.gz)"]
+    for spec in specs:
+        r, p = rt.make_trace(spec), pt.make_trace(spec)
+        assert (str(p), p.family, p.params) == (str(r), r.family, r.params)
+        assert (p.n_keys, p.is_tier, p.is_fleet, p.is_file, p.n_tenants) \
+            == (r.n_keys, r.is_tier, r.is_fleet, r.is_file, r.n_tenants)
+        if not (p.is_tier or p.is_fleet):
+            np.testing.assert_array_equal(p.generate_batch(1000, (0, 4)),
+                                          r.generate_batch(1000, (0, 4)))
+    for bad in ("nope", "zipf(N=3)", "zipf(N=3,alpha=1,x=2)"):
+        with pytest.raises(ValueError) as ref:
+            rt.make_trace(bad)
+        with pytest.raises(ValueError) as port:
+            pt.make_trace(bad)
+        assert str(port.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: p.name)
+def test_ingest_copy_equals_reference_on_corpus(path):
+    assert pi.detect_format(path) == ri.detect_format(path)
+    assert pi.count_requests(path) == ri.count_requests(path)
+    assert dataclasses.asdict(pi.characterize(path)) == \
+        dataclasses.asdict(ri.characterize(path))
+    ref, port = ri.load_trace(path), pi.load_trace(path)
+    for f in ref._fields:
+        r, p = getattr(ref, f), getattr(port, f)
+        if r is None:
+            assert p is None, f
+        else:
+            np.testing.assert_array_equal(p, r, err_msg=f)
+    for r, p in zip(ri.iter_chunks(path, chunk=777, limit=3000),
+                    pi.iter_chunks(path, chunk=777, limit=3000)):
+        for f in r._fields:
+            a, b = getattr(r, f), getattr(p, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+def test_ingest_writers_equal_reference(tmp_path):
+    keys = rt.zipf_trace(N=50, T=400, alpha=1.0, seed=2)
+    sizes = (np.arange(50) * 37 % 251 + 1)[keys]
+    costs = rt.fetch_costs(sizes)
+    for fn, name, args in (
+            ("write_oracle_general", "t.oracleGeneral.bin", (keys, sizes)),
+            ("write_csv", "t.csv", (keys, sizes, costs)),
+            ("write_keys", "t.keys.txt", (keys,))):
+        for side, mod in (("ref", ri), ("port", pi)):
+            (tmp_path / side).mkdir(exist_ok=True)
+            getattr(mod, fn)(str(tmp_path / side / name), *args)
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "ref" / name).read_bytes(), fn
