@@ -63,7 +63,8 @@ Phases, one JSON line each:
    ``torch.profiler`` (device-busy time, idle share, launches, top kernels);
 7. serve vs plain: the same model at 2 layers in f32, prefill + 8
    teacher-forced steps with the kernels and with their plain versions, in
-   both regimes: logits within 1e-4 and DAC's control state equal;
+   both regimes (and 3 capped steps in the bounded one, below): logits
+   within 1e-4 and DAC's control state equal;
 8. slot policies: the twelve slot policies (FIFO, LRU, BLRU, LFU, Clock,
    Sieve, TwoQ, ARC, TinyLFU, Hyperbolic, LIRS, LHD) on the first 4,000
    requests of every dataset family, 3 seeds, lognormal sizes and fetch
@@ -85,7 +86,26 @@ Phases, one JSON line each:
 10. real traces: ``benchmarks/real_traces.py``'s grid (fifo, lru, arc, ac,
    dac over ``benchmarks/corpus``, K in {S, L}) through ``run_sweep``
    streamed and materialized: identical records, the rank cells' equal to
-   the CPU's.
+   the CPU's;
+11. tier, fleet, admission: ``benchmarks/tenant_sweep.py``'s grid (7
+   entries x flux / contended x 3 seeds, T cut to 20,000 from 60,000)
+   through ``run_tier_sweep``, ``benchmarks/fleet_sweep.py``'s (6 entries x
+   pool / churn x 3 seeds, T = 16,000) through ``run_fleet_sweep`` and,
+   of ``benchmarks/robustness.py``'s grid (N = 4,096), lru, dac,
+   admit(lru) and admit(dac) x 4 scenarios x {S, L} x 2 seeds (T =
+   20,000) through ``run_sweep``, on the card: DAC's budgeted plan (and
+   the rank bases under admission) as one B1 launch a step inside the CUDA
+   graph loop, launches counted against their formula (a launch inside a
+   graph counts once, at capture), every record equal to the same runner
+   on the CPU (worker processes); the graph loop against the eager loop
+   over 1,000 steps on one cell of each kind; ``admit(dac)`` stepped on
+   the card leaving its input state unwritten and equal to the CPU step by
+   step (the gate's revert); DAC's resize laws on ``observe=True``
+   replays through B1; us a step and device operations a step.
+
+Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
+sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
+card against the CPU and the caps' law.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1280,7 +1300,8 @@ def phase_serve_vs_plain(dev):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
     steps = 8
-    toks = prompt_tokens(cfg, SERVE_B, SERVE_S + steps, dev, n=1)
+    toks = prompt_tokens(cfg, SERVE_B, SERVE_S + steps + CAP_STEPS, dev,
+                         n=1)
     margins = []                 # plain run: top-2 mass margin per call
     attend = ss.attend_decode
 
@@ -1303,16 +1324,23 @@ def phase_serve_vs_plain(dev):
                                       max_len=SERVE_S + steps, budget=budget,
                                       impl=impl)
                 logs, ctrls = [last], []
-                for t in range(SERVE_S, SERVE_S + steps):
+                n_steps = steps + (CAP_STEPS if budget else 0)
+                for t in range(SERVE_S, SERVE_S + n_steps):
                     margins.append([])
+                    caps = None
+                    if t >= SERVE_S + steps:
+                        # one cap a sequence, as an arbiter would grant
+                        caps = kv_caps_for(
+                            state["layers"][0]["ctrl"]["k_active"])
                     state, lg = decode_step(params, cfg, state,
-                                            token=toks[:, t], impl=impl)
+                                            token=toks[:, t], kv_caps=caps,
+                                            impl=impl)
                     logs.append(lg)
                     if budget:
                         ctrls.append([{k: x.clone() for k, x in
                                        st["ctrl"].items()}
                                       for st in state["layers"]])
-                want = (cfg.n_layers, cfg.n_layers * steps)
+                want = (cfg.n_layers, cfg.n_layers * n_steps)
                 got = (fa.LAUNCHES, da.LAUNCHES)
                 if got != (want if impl == "kernel" else (0, 0)):
                     raise AssertionError(f"{regime} {impl}: launches {got}")
@@ -1336,7 +1364,7 @@ def phase_serve_vs_plain(dev):
                 raise Mismatch(f"serve vs plain {regime}: ctrl differs at "
                                f"step {ctrl_diff[0]} with a top-2 margin "
                                f"{pmarg[ctrl_diff[0]]} > {MASS_TOL}")
-            first = ctrl_diff[0] if ctrl_diff else steps
+            first = ctrl_diff[0] if ctrl_diff else len(errs)
             if max(errs[:first + 1]) > SERVE_LOGIT_TOL:
                 raise Mismatch(f"serve vs plain {regime}: logits differ by "
                                f"{max(errs[:first + 1])} > "
@@ -1347,7 +1375,51 @@ def phase_serve_vs_plain(dev):
     torch.cuda.empty_cache()
     return {"phase": "serve_vs_plain", "arch": cfg.name, "layers": 2,
             "dtype": "float32", "batch": SERVE_B, "prompt": SERVE_S,
-            "steps": steps, "budget": SERVE_BUDGET, **out}
+            "steps": steps, "budget": SERVE_BUDGET,
+            "capped_steps": CAP_STEPS, **out,
+            "kv_caps_law": kv_caps_law(dev)}
+
+
+# bounded decode steps with one kv_caps entry a sequence, after phase 7's
+# teacher-forced steps
+CAP_STEPS = 3
+
+
+def kv_caps_for(k):
+    """Per-sequence caps that deny (``k``), partly grant (``k + k // 2``) or
+    fully grant (``2k``) a doubling, in turn over the sequences."""
+    import torch
+    kinds = torch.arange(k.shape[0], device=k.device) % 3
+    return torch.where(kinds == 0, k, torch.where(
+        kinds == 1, k + k // 2, 2 * k)).to(torch.int32)
+
+
+def kv_caps_law(dev, k0=64):
+    """tests/test_fleet.py::test_kv_cache_resize_respects_caps at the serve
+    shape on the card: pure misses through ``kv_cache.insert`` and
+    ``resize(cap=)`` until every sequence's ``jump`` saturates; the capped
+    sequence stays at ``k``, the partial grant lands on its cap, the full
+    grant doubles; equal to the CPU bit for bit.  (In a decode step a cap
+    never binds: the step's hit takes ``jump`` back below ``2k`` before
+    the resize check.)"""
+    import torch
+    from repro_torch.serving import kv_cache as kvc
+    out = {}
+    for d in ("cpu", dev):
+        ctrl = kvc.control_init(SERVE_B, SERVE_BUDGET, k0=k0, device=d)
+        caps = kv_caps_for(ctrl["k_active"])
+        for pos in range(2 * k0):
+            ctrl, _ = kvc.insert(ctrl, torch.full((SERVE_B,), pos,
+                                                  dtype=torch.int32,
+                                                  device=d))
+            ctrl = kvc.resize(ctrl, k_min=16, cap=caps)
+        out[d] = ctrl
+    tensors_equal(out[dev], out["cpu"], "kv_caps law: card vs CPU")
+    k = out["cpu"]["k_active"].tolist()
+    want = [(k0, k0 + k0 // 2, 2 * k0)[b % 3] for b in range(SERVE_B)]
+    if k != want:
+        raise AssertionError(f"kv_caps law: k_active {k}, expected {want}")
+    return {"k0": k0, "k_active": k}
 
 
 # ---------------------------------------------------------------------------
@@ -1700,6 +1772,433 @@ def phase_corpus(dev):
              "rows": rows}, launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the tier, the fleet and admission (B1's budgeted plan and rank
+# bases one request a launch, inside the CUDA graph loop)
+# ---------------------------------------------------------------------------
+
+# benchmarks/tenant_sweep.py's grid at T = 20,000 (its own T is 60,000: cut
+# to keep the smoke inside its time; PERF.md §4)
+TIER_T = 20_000
+# benchmarks/fleet_sweep.py's grid at the size of the reference's committed
+# run (experiments/bench/BENCH_fleet.json)
+FLEET_T = 16_000
+# benchmarks/robustness.py's grid (N = 4,096) for the admission policies
+# and their bases, at T = 20,000 (its own T is 40,000)
+ADMIT_T = 20_000
+MULTI_SEEDS = (0, 1, 2)
+ADMIT_SEEDS = (0, 1)
+MULTI_EAGER_T = 1_000
+TIER_DAC = "dac(k_min=16)"
+TIER_ENTRIES = ((TIER_DAC, "greedy"), (TIER_DAC, "proportional"),
+                (TIER_DAC, "static"), ("lru", "static"), ("climb", "static"),
+                ("adaptiveclimb", "static"), ("fifo", "static"))
+FLEET_ENTRIES = ((TIER_DAC, "auction"), (TIER_DAC, "greedy"),
+                 (TIER_DAC, "proportional"), (TIER_DAC, "static"),
+                 ("lru", "static"), ("fifo", "static"))
+ADMIT_POLICIES = ("lru", "dac", "admit(lru)", "admit(dac)")
+
+
+def tier_sweep(T=None):
+    T = T or TIER_T
+    from repro_torch.bench import TierScenario, TierSweep
+
+    def trace(n, duty):
+        return (f"tenants(N=256,n_tenants={n},alpha=0.5,period=6000,"
+                f"duty={duty},lo=16,alpha_lo=1.6)")
+
+    size = "lognormal(median_kb=16,sigma=1.5)"
+    return TierSweep("tenant_sweep", entries=TIER_ENTRIES, scenarios=(
+        TierScenario("flux", trace=trace(4, 0.25), T=T, budget=(320,),
+                     size_model=size),
+        TierScenario("contended", trace=trace(8, 0.5), T=T, budget=(512,),
+                     size_model=size)), seeds=MULTI_SEEDS)
+
+
+def fleet_sweep(T=None):
+    T = T or FLEET_T
+    from repro_torch.bench import FleetScenario, FleetSweep
+
+    def trace(n, rate, session):
+        return (f"fleet(N=256,n_lanes={n},rate={rate},mean_session="
+                f"{session},alpha=0.5,period=6000,duty=0.25,lo=16,"
+                "alpha_lo=1.6)")
+
+    models = dict(size_model="lognormal(median_kb=16,sigma=1.5)",
+                  cost_model="fetch(base_ms=2.0,per_mb_ms=8.0)")
+    return FleetSweep("fleet_sweep", entries=FLEET_ENTRIES, scenarios=(
+        FleetScenario("pool", trace=trace(12, 0.002, 3000), T=T,
+                      budget=(384,), **models),
+        FleetScenario("churn", trace=trace(8, 0.02, 300), T=T,
+                      budget=(256,), **models)), seeds=MULTI_SEEDS)
+
+
+def admit_sweep(T=None, N=4096):
+    T = T or ADMIT_T
+    from repro_torch.bench import Scenario, Sweep
+    bimodal = f"bimodal(split={N},small_kb=4,large_kb=64)"
+    lognormal = "lognormal(median_kb=16,sigma=1.5)"
+    grid = (("flood", f"flood(N={N},alpha=0.9,flood_frac=0.35,burst_len=128,"
+             "phases=4)", bimodal),
+            ("scanstorm", f"scanstorm(N={N},alpha=0.9,mean_phase=2000,"
+             "drift=0.1,storm_frac=0.25,scan_len=256)", bimodal),
+            ("diurnal", f"diurnal(N={N},period={N},lo=64)", lognormal),
+            ("thrash", f"thrash(N={N},loop={N // 4})", lognormal))
+    return Sweep("robustness", policies=ADMIT_POLICIES, scenarios=tuple(
+        Scenario(name, trace=tr, T=T, K=("S", "L"), size_model=size,
+                 cost_model="fetch") for name, tr, size in grid),
+        seeds=ADMIT_SEEDS)
+
+
+def multi_sweeps():
+    return {"tier": tier_sweep(), "fleet": fleet_sweep(),
+            "admission": admit_sweep()}
+
+
+def multi_jobs(kind, sw):
+    """The (scenario, entry) pieces one CPU worker runs for a sweep."""
+    if kind == "admission":
+        return [(sc.name, pol) for sc in sw.scenarios for pol in sw.policies]
+    return [(sc.name, e) for sc in sw.scenarios for e in sw.entries]
+
+
+def cpu_multi_records(kind, scenario, entry):
+    """One scenario x entry of phase 11's sweeps through the port's runner
+    on the CPU (a worker process): the records without ``wall_s``."""
+    import dataclasses
+
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.bench import run_fleet_sweep, run_sweep, run_tier_sweep
+    from repro_torch.core import Engine
+    sw = multi_sweeps()[kind]
+    scs = tuple(sc for sc in sw.scenarios if sc.name == scenario)
+    eng = Engine(device="cpu")
+    if kind == "admission":
+        res = run_sweep(dataclasses.replace(sw, policies=(entry,),
+                                            scenarios=scs),
+                        engine=eng, stream=False)
+    else:
+        run = run_tier_sweep if kind == "tier" else run_fleet_sweep
+        res = run(dataclasses.replace(sw, entries=(entry,), scenarios=scs),
+                  engine=eng)
+    return [no_wall(r) for r in res.records]
+
+
+def record_key(kind, rec):
+    if kind == "admission":
+        return (rec["scenario"], rec["policy"], rec["K"])
+    return (rec["scenario"], rec["policy"], rec["arbiter"], rec["budget"])
+
+
+def graph_launches(T, chunk):
+    """B1 launches the CUDA graph loop counts for a replay of T steps that
+    launches B1 once a step: LAUNCHES counts a captured launch once, at
+    capture.  One warm-up step before the capture, ``chunk`` steps
+    captured, the ``T % chunk`` eager tail; under ``chunk`` steps the
+    whole replay is eager."""
+    return T if T < chunk else 1 + chunk + T % chunk
+
+
+def expected_launches(kind, sw, chunk):
+    """B1 launches a sweep of phase 11 should count, cell by cell: a rank
+    policy (or a tier or fleet of one) steps B1 once a step in the graph
+    loop; a bare rank policy's ``run_sweep`` cell is one whole-trace
+    launch; slot policies and admission over one launch nothing."""
+    from repro_torch.core import RankPolicy, make_policy
+    from repro_torch.core.admission import AdmissionPolicy
+    n = 0
+    for cell in sw.cells():
+        pol = make_policy(cell[0])
+        if kind == "admission":
+            T = cell[1].T
+            if isinstance(pol, RankPolicy):
+                n += 1
+            elif isinstance(pol, AdmissionPolicy) and \
+                    isinstance(pol.base, RankPolicy):
+                n += graph_launches(T, chunk)
+        elif isinstance(pol, RankPolicy):
+            n += graph_launches(cell[2].T, chunk)
+    return n
+
+
+def tensors_equal(a, b, what):
+    """Two results or states (nested dicts and tuples of tensors) equal
+    bit for bit."""
+    import torch
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise Mismatch(f"{what}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            tensors_equal(a[k], b[k], f"{what}[{k!r}]")
+    elif isinstance(a, tuple):
+        fields = getattr(a, "_fields", range(len(a)))
+        for f, x, y in zip(fields, a, b):
+            tensors_equal(x, y, f"{what}.{f}")
+    elif a is None or b is None:
+        if a is not b:
+            raise Mismatch(f"{what}: one side is None")
+    elif a.dtype != b.dtype or a.shape != b.shape or \
+            not torch.equal(a.cpu(), b.cpu()):
+        raise Mismatch(f"{what}: differs")
+
+
+def ops_a_step(make_run):
+    """Device operations a step of an eager replay (``make_run(T)`` runs
+    ``T`` steps with ``chunk=0``), which the graph loop captures node for
+    node: ``torch.profiler`` over 16 and 48 steps, the difference over
+    32."""
+    n = {T: profile_ms(make_run(T))["kernel_launches"] for T in (16, 48)}
+    return (n[48] - n[16]) / 32
+
+
+def multi_graph_vs_eager(dev):
+    """On one cell of each kind, the graph loop equals the eager loop on
+    the card over MULTI_EAGER_T steps (results, obs and final state); and
+    each kind's device operations a step."""
+    import functools
+
+    import torch
+    from repro_torch.bench import materialize
+    from repro_torch.core import Request, make_policy, replay_lanes
+    from repro_torch.fleet import FleetTier, replay_fleet
+    from repro_torch.tier import CacheTier, replay_tier
+    out = {}
+    sws = multi_sweeps()
+    for kind, make in (("tier", lambda sc: CacheTier(
+            TIER_DAC, n_tenants=sc.n_tenants, budget=sc.budgets()[0],
+            arbiter="greedy")), ("fleet", lambda sc: FleetTier(
+            TIER_DAC, n_lanes=sc.n_lanes, budget=sc.budgets()[0],
+            arbiter="auction", util_decay=sc.util_decay))):
+        sc = sws[kind].scenarios[-1]           # contended / churn
+        reqs = materialize(sc, MULTI_SEEDS, dev)
+        head = Request(*(x[:, :MULTI_EAGER_T].contiguous() for x in reqs))
+        rep = functools.partial(
+            replay_tier if kind == "tier" else replay_fleet, device=dev)
+        tier = make(sc)
+        graph = rep(tier, head, observe=True)
+        eager = rep(tier, head, observe=True, chunk=0)
+        tensors_equal(graph, eager, f"{kind} {sc.name}: graph vs eager")
+        out[kind] = {"cell": f"{sc.name} {tier.policy.name}+"
+                             f"{tier.arbiter.name}",
+                     "device_ops_per_step": ops_a_step(
+                         lambda T: lambda: rep(tier, Request(
+                             *(x[:, :T].contiguous() for x in reqs)),
+                             chunk=0))}
+    sc = next(s for s in sws["admission"].scenarios if s.name == "flood")
+    K = max(sc.capacities())
+    reqs = materialize(sc, ADMIT_SEEDS, dev)
+    head = Request(*(x[:, :MULTI_EAGER_T].contiguous() for x in reqs))
+    pol = make_policy("admit(dac)")
+    runs = [replay_lanes(pol, head, pol.init(K, len(ADMIT_SEEDS), dev),
+                         collect_info=False, chunk=c)
+            for c in (None, 0)]
+    tensors_equal(runs[0], runs[1], "admission flood(L): graph vs eager")
+    out["admission"] = {"cell": f"flood K={K} admit(dac)",
+                        "device_ops_per_step": ops_a_step(
+                            lambda T: lambda: replay_lanes(
+                                pol, Request(*(x[:, :T].contiguous()
+                                               for x in reqs)),
+                                pol.init(K, len(ADMIT_SEEDS), dev),
+                                collect_info=False, chunk=0))}
+    torch.cuda.synchronize()
+    return out
+
+
+def admission_revert(dev, T=400):
+    """``admit(dac)`` stepped eagerly on the card over the flood trace at
+    the small capacity: every step leaves its input state unwritten (the
+    gate keeps the old base state to revert to; B1's wrapper copies the
+    row it is given) and equals the same step on the CPU, state and info;
+    the gate rejects misses (so reverts run: counted on the CPU against
+    the bare base's step)."""
+    import torch
+    from repro_torch.bench import materialize
+    from repro_torch.core import Request, make_policy
+    from repro_torch.core.simulator import _tree_map
+    sc = next(s for s in admit_sweep().scenarios if s.name == "flood")
+    K = min(sc.capacities())
+    pol = make_policy("admit(dac)")
+    reqs = materialize(sc, ADMIT_SEEDS, "cpu")
+    st = {d: pol.init(K, len(ADMIT_SEEDS), d) for d in ("cpu", dev)}
+    rejected = 0
+    for t in range(T):
+        step, prev = {}, {}
+        req = Request(*(x[:, t] for x in reqs))
+        for d in ("cpu", dev):
+            prev[d] = _tree_map(torch.clone, st[d])
+            new, info = pol.step(st[d], Request(*(x.to(d) for x in req)))
+            tensors_equal(st[d], prev[d], f"revert step {t} on {d}: input")
+            st[d], step[d] = new, info
+        tensors_equal(st[dev], st["cpu"], f"revert step {t}: state")
+        tensors_equal(step[dev], step["cpu"], f"revert step {t}: info")
+        # a rejected miss: the base step evicted a key, the gate kept it
+        _, base = pol.base.step(prev["cpu"]["base"], req)
+        rejected += int((~base.hit & (base.evicted_key != -1)
+                         & (step["cpu"].evicted_key == -1)).sum())
+    if not rejected:
+        raise AssertionError("admission: the gate rejected no miss")
+    return {"steps": T, "K": K, "lanes": len(ADMIT_SEEDS),
+            "misses_kept_out": rejected}
+
+
+def dac_resize_on_card(dev):
+    """tests/test_dac_resize.py's laws through B1 on the card: replays of
+    alternating thrash / concentrate segments with ``observe=True`` (one
+    launch each) keep ``k`` in [k_min, K * growth], move it by exact
+    doubling or halving, keep ``jump`` in [-(k // 2), 2k] and ranks past
+    ``k`` EMPTY, grow and shrink; a k_min floor holds; and every replay
+    equals the CPU's (B1's plain version) bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Request, make_policy, replay_lanes
+
+    def mixed(seed, T):
+        rng = np.random.default_rng(seed)
+        segs = []
+        while sum(len(s) for s in segs) < T:
+            wide = rng.random() < 0.5
+            segs.append(rng.integers(0, 400 if wide else 3, 150))
+        return np.concatenate(segs)[:T].astype(np.int32)
+
+    cases = [(8, 0.5, 4, 2), (16, 0.25, 2, 2), (16, 1.0, 8, 4),
+             (32, 0.5, 1, 2), (16, 0.5, 4, 2)]
+    rows = []
+    for K, eps, growth, k_min in cases:
+        spec = f"dac(eps={eps},growth={growth},k_min={k_min})"
+        keys = np.stack([mixed(s, 6000) for s in (0, 1, 2)])
+        pol = make_policy(spec)
+        runs = {}
+        for d in ("cpu", dev):
+            res, st = replay_lanes(pol, Request.of(keys, device=d),
+                                   pol.init(K, 3, d), observe=True,
+                                   collect_info=False)
+            runs[d] = (res, st)
+        tensors_equal(runs[dev], runs["cpu"], f"dac resize {spec}")
+        res, st = runs["cpu"]
+        ks, jumps = res.obs["k"].numpy(), res.obs["jump"].numpy()
+        ratio = ks[:, 1:] / ks[:, :-1]
+        ok = (ks.min() >= k_min and ks.max() <= K * growth
+              and set(np.unique(ratio)) <= {0.5, 1.0, 2.0}
+              and (jumps <= 2 * ks).all() and (jumps >= -(ks // 2)).all()
+              and (ratio < 1).any() and (growth == 1 or (ratio > 1).any()))
+        r = torch.arange(st["cache"].shape[1])[None]
+        if not ok or not (st["cache"][r >= st["k"][:, None]] == -1).all():
+            raise AssertionError(f"dac resize {spec}: invariants broken")
+        rows.append({"spec": spec, "K": K, "k_min_seen": int(ks.min()),
+                     "k_max_seen": int(ks.max()),
+                     "grows": int((ratio > 1).sum()),
+                     "shrinks": int((ratio < 1).sum())})
+    floor = make_policy("dac(eps=1.0,growth=2,k_min=8)")
+    keys = np.tile(np.arange(2, dtype=np.int32), 500)[None]
+    res, _ = replay_lanes(floor, Request.of(keys, device=dev),
+                          floor.init(16, 1, dev), observe=True,
+                          collect_info=False)
+    ks = res.obs["k"].cpu().numpy()
+    if ks.min() < 8 or ks[0, -1] != 8:
+        raise AssertionError(f"dac k_min floor: k went to {ks.min()}")
+    return rows
+
+
+def phase_multi(dev):
+    """The tier, the fleet and admission through the port's entry points on
+    the card: tenant_sweep's grid through ``run_tier_sweep``, fleet_sweep's
+    through ``run_fleet_sweep`` and the admission cells of robustness's
+    through ``run_sweep``, B1's launches counted against their formula and
+    each record equal to the same runner's on the CPU (worker processes,
+    meanwhile); graph against eager on one cell of each kind, the
+    admission gate's revert step by step, and DAC's resize laws through
+    B1.  Returns (summary, B1 launches of the three sweeps)."""
+    import torch
+    from repro_torch.bench import results, run_fleet_sweep, run_sweep, \
+        run_tier_sweep
+    from repro_torch.core import Engine
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import policy_step as ps
+
+    t_phase = time.perf_counter()
+    sws = multi_sweeps()
+    runners = {"tier": run_tier_sweep, "fleet": run_fleet_sweep,
+               "admission": lambda sw, engine: run_sweep(
+                   sw, engine=engine, stream=False)}
+    out, launches = {}, 0
+    with cpu_workers() as pool:
+        # the admission cells are the CPU's longest: queued first
+        cpu = {(kind, sc, e): pool.submit(cpu_multi_records, kind, sc, e)
+               for kind in ("admission", "fleet", "tier")
+               for sc, e in multi_jobs(kind, sws[kind])}
+        for kind, sw in sws.items():
+            torch.cuda.synchronize()
+            ps.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = runners[kind](sw, engine=Engine(device=dev))
+            seconds = time.perf_counter() - t0
+            n = ps.LAUNCHES
+            want = expected_launches(kind, sw, sim.GRAPH_CHUNK)
+            if n != want:
+                raise AssertionError(f"{kind}: B1 launched {n} times, the "
+                                     f"formula gives {want}")
+            launches += n
+            results.validate(res.payload())
+            T = sw.scenarios[0].T
+            steps = sum(r["wall_s"] for r in res.records)
+            by_entry = {}
+            for r in res.records:
+                e = r["policy"] + (f"+{r['arbiter']}" if "arbiter" in r
+                                   else "")
+                by_entry.setdefault(e, []).append(r["wall_s"] * 1e6 / T)
+            out[kind] = {"cells": len(res.records), "T": T, "s": seconds,
+                         "policy_replay": n,
+                         "policy_replay_per_graph_replay": graph_launches(
+                             T, sim.GRAPH_CHUNK),
+                         "us_per_step": steps * 1e6 / (len(res.records) * T),
+                         "us_per_step_by_entry": {
+                             e: sum(v) / len(v) for e, v in by_entry.items()},
+                         "byte_miss": {
+                             " ".join(str(x) for x in record_key(kind, r)):
+                             r["metrics"]["byte_miss_ratio"]
+                             for r in res.records}}
+            out[kind]["_records"] = res.records
+        # the checks run on the card while the workers finish
+        t0 = time.perf_counter()
+        ge = multi_graph_vs_eager(dev)
+        for kind, row in ge.items():
+            out[kind].update(graph_eager_cell=row["cell"],
+                             graph_eager_T=MULTI_EAGER_T,
+                             device_ops_per_step=row["device_ops_per_step"])
+        revert = admission_revert(dev)
+        resize = dac_resize_on_card(dev)
+        checks_s = time.perf_counter() - t0
+        for kind, sw in sws.items():
+            want = {}
+            for sc, e in multi_jobs(kind, sw):
+                for r in cpu[kind, sc, e].result():
+                    want[record_key(kind, r)] = r
+            got = out[kind].pop("_records")
+            if len(got) != len(want):
+                raise Mismatch(f"{kind}: {len(got)} cells on the card, "
+                               f"{len(want)} on the CPU")
+            for r in got:
+                w = want.get(record_key(kind, r))
+                if no_wall(r) != w:
+                    raise Mismatch(f"{kind} {record_key(kind, r)}: card "
+                                   f"{r['metrics']} vs the CPU "
+                                   f"{w and w['metrics']}")
+            out[kind]["cells_equal_cpu"] = len(got)
+    return ({"phase": "tier_fleet_admission",
+             "cut": f"tier T {TIER_T} (tenant_sweep's 60,000); admission "
+                    f"T {ADMIT_T} (robustness's 40,000), its policies "
+                    f"{list(ADMIT_POLICIES)} only",
+             "chunk": sim.GRAPH_CHUNK,
+             "launch_formula": "rank cell of run_sweep: 1; graph loop: "
+                               "1 warm-up + chunk captured + T % chunk "
+                               "eager tail",
+             **out, "checks_s": checks_s,
+             "admission_revert": revert, "dac_resize": resize,
+             "s": time.perf_counter() - t_phase}, launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1756,14 +2255,18 @@ def main() -> int:
     emit(res)
     res, corpus_launches = phase_corpus(dev)
     emit(res)
+    res, multi_launches = phase_multi(dev)
+    emit(res)
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
         "name": "policy_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
         "replaces": "src/repro/kernels/policy_step.py:247",
-        # the main path's replays, Table III's and the corpus sweeps'
-        "launches": launches + table_launches + corpus_launches,
+        # the main path's replays, Table III's, the corpus sweeps' and the
+        # tier, fleet and admission sweeps' (counted at capture there)
+        "launches": launches + table_launches + corpus_launches
+        + multi_launches,
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -14,13 +14,16 @@ The paper's evaluation grid as three layers::
 ``run_sweep(sweep, engine=Engine(device="cpu"))`` runs the plain
 versions).  :mod:`repro_torch.bench.results` owns the versioned,
 provenance-stamped, validated payloads that
-:mod:`repro_torch.bench.report` renders into the paper's tables.  The tier
-and fleet scenarios and sweeps are plain data here; their runners wait
-for the tier and fleet layers (ROADMAP A9, A10).
+:mod:`repro_torch.bench.report` renders into the paper's tables.
+``run_tier_sweep`` and ``run_fleet_sweep`` run the multi-tenant grids
+(:class:`TierSweep`, :class:`FleetSweep`) through ``Engine.replay_tier``
+and ``Engine.replay_fleet`` into ``SCHEMA_V2`` records.
 """
 from . import report, results
-from .runner import (STREAM_THRESHOLD, SweepResult, materialize, run_sweep,
-                     should_stream, stream_chunks)
+from .runner import (STREAM_THRESHOLD, FleetSweepResult, SweepResult,
+                     TierSweepResult, materialize, run_fleet_sweep,
+                     run_sweep, run_tier_sweep, should_stream,
+                     stream_chunks)
 from .scenario import (COST_MODELS, LARGE_FRAC, SIZE_MODELS, SMALL_FRAC,
                        FleetScenario, FleetSweep, Scenario, ServeScenario,
                        Sweep, TierScenario, TierSweep, k_for)
@@ -28,7 +31,8 @@ from .scenario import (COST_MODELS, LARGE_FRAC, SIZE_MODELS, SMALL_FRAC,
 __all__ = [
     "Scenario", "Sweep", "SweepResult", "run_sweep", "materialize",
     "should_stream", "stream_chunks", "STREAM_THRESHOLD",
-    "TierScenario", "TierSweep", "FleetScenario", "FleetSweep",
+    "TierScenario", "TierSweep", "TierSweepResult", "run_tier_sweep",
+    "FleetScenario", "FleetSweep", "FleetSweepResult", "run_fleet_sweep",
     "ServeScenario",
     "results", "report", "k_for",
     "SIZE_MODELS", "COST_MODELS", "SMALL_FRAC", "LARGE_FRAC",

@@ -41,11 +41,11 @@ from ..core import Engine
 from ..core.policy import Request
 from ..data import ingest
 from . import report, results
-from .scenario import Sweep
+from .scenario import FleetSweep, Sweep, TierSweep
 
 __all__ = ["materialize", "run_sweep", "SweepResult", "run_tier_sweep",
-           "run_fleet_sweep", "should_stream", "stream_chunks",
-           "STREAM_THRESHOLD"]
+           "TierSweepResult", "run_fleet_sweep", "FleetSweepResult",
+           "should_stream", "stream_chunks", "STREAM_THRESHOLD"]
 
 # per-lane trace length above which run_sweep(stream="auto") switches a
 # synthetic scenario to the streaming path (file-backed scenarios always
@@ -233,18 +233,184 @@ class SweepResult:
         return payload
 
 
-def run_tier_sweep(*args, **kwargs):
-    """Not ported yet: the tier layer is ROADMAP A9."""
-    raise NotImplementedError(
-        "run_tier_sweep needs the tier layer, not ported yet (ROADMAP.md "
-        "queue A, item A9)")
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
-def run_fleet_sweep(*args, **kwargs):
-    """Not ported yet: the fleet layer is ROADMAP A10."""
-    raise NotImplementedError(
-        "run_fleet_sweep needs the fleet layer, not ported yet (ROADMAP.md "
-        "queue A, item A10)")
+def _shared_metrics(res) -> tuple:
+    """The aggregate and per-lane metrics a tier record and a fleet record
+    share, per seed."""
+    avg_k = np.asarray(res.avg_k.cpu().numpy(), dtype=np.float64)
+    agg = {
+        "miss_ratio": _per_seed(res.agg_miss_ratio),
+        "byte_miss_ratio": _per_seed(res.agg_byte_miss_ratio),
+        "penalty_ratio": _per_seed(res.agg_penalty_ratio),
+        "avg_k_total": _per_seed(avg_k.sum(axis=-1)),
+    }
+    per_lane = {
+        "miss_ratio": np.atleast_2d(np.asarray(res.miss_ratio)),
+        "byte_miss_ratio": np.atleast_2d(np.asarray(res.byte_miss_ratio)),
+        "avg_k": np.atleast_2d(avg_k),
+    }
+    return agg, per_lane
+
+
+def _multi_record(pol, arb, sc, B, label, seeds, wall_s, agg, per_lane,
+                  n, axis) -> dict:
+    """One v2 record: aggregate metrics plus a sub-record per tenant
+    (``axis="tenant"``) or lane (``"lane"``)."""
+    subs = [{axis: t, "metrics": {name: [float(v) for v in vals[:, t]]
+                                  for name, vals in per_lane.items()}}
+            for t in range(n)]
+    return {
+        "policy": pol, "arbiter": arb, "scenario": sc.name,
+        "trace": sc.trace, "T": int(sc.T), "budget": int(B),
+        "budget_label": label, f"n_{axis}s": n,
+        "seeds": [int(s) for s in seeds],
+        "metrics": agg, f"{axis}s": subs, "wall_s": float(wall_s),
+    }
+
+
+def _tier_cell_record(pol, arb, sc, B, label, seeds, res, wall_s) -> dict:
+    """One v2 record: aggregate (byte- and cost-weighted) tier metrics plus
+    a per-tenant sub-record list."""
+    agg, per_tenant = _shared_metrics(res)
+    return _multi_record(pol, arb, sc, B, label, seeds, wall_s, agg,
+                         per_tenant, sc.n_tenants, "tenant")
+
+
+def _fleet_cell_record(pol, arb, sc, B, label, seeds, res, wall_s) -> dict:
+    """One v2 record: aggregate fleet metrics + SLO telemetry (penalty
+    p50/p99, Jain occupancy fairness) plus a per-lane sub-record list."""
+    agg, per_lane = _shared_metrics(res)
+    agg.update(penalty_p50=_per_seed(res.agg_penalty_quantile(0.5)),
+               penalty_p99=_per_seed(res.agg_penalty_quantile(0.99)),
+               jain=_per_seed(res.jain))
+    per_lane.update(
+        alive_frac=np.atleast_2d(np.asarray(
+            res.alive_frac.cpu().numpy(), dtype=np.float64)),
+        penalty_p99=np.atleast_2d(res.penalty_quantile(0.99)),
+        requests=np.atleast_2d(np.asarray(
+            res.metrics.requests.cpu().numpy(), dtype=np.float64)))
+    return _multi_record(pol, arb, sc, B, label, seeds, wall_s, agg,
+                         per_lane, sc.n_lanes, "lane")
+
+
+@dataclasses.dataclass(frozen=True)
+class TierSweepResult:
+    """Executed tier (or fleet) sweep: config + one v2 record per grid
+    cell, and the device the records were computed on."""
+
+    sweep: TierSweep
+    records: list
+    wall_s: float
+    device: str = "cuda"
+
+    def select(self, **eq) -> list:
+        return report.select(self.records, **eq)
+
+    def metric(self, name: str, **eq) -> np.ndarray:
+        return report.seed_values(self.records, name, **eq)
+
+    def payload(self, extras: dict | None = None) -> dict:
+        return results.build_payload(
+            self.sweep.name, config=self.sweep.to_config(),
+            records=self.records, extras=extras, wall_s=self.wall_s,
+            schema=results.SCHEMA_V2, device=self.device)
+
+    def save(self, extras: dict | None = None, *,
+             results_dir: str | None = None) -> dict:
+        payload = self.payload(extras)
+        results.save(payload, results_dir=results_dir)
+        return payload
+
+
+class FleetSweepResult(TierSweepResult):
+    """Executed fleet sweep (``sweep`` a :class:`FleetSweep`)."""
+
+
+def _run_cells(sweep, engine, build, replay, record, result_cls, progress):
+    """Every (policy, arbiter, scenario, budget) cell of a tier or fleet
+    sweep: one ``[S, T, N]`` batch per scenario (shared across entries
+    and budgets), one replay per cell with the seeds as independent
+    tiers; ``wall_s`` ends after ``torch.cuda.synchronize()`` on the
+    card."""
+    engine = engine or Engine()
+    dev = engine.device
+    t_start = time.perf_counter()
+    records = []
+    reqs_cache = {}
+    for pol, arb, sc, B, label in sweep.cells():
+        if sc.name not in reqs_cache:
+            reqs_cache[sc.name] = materialize(sc, sweep.seeds, dev)
+        t0 = time.perf_counter()
+        res = getattr(engine, replay)(build(pol, arb, sc, B),
+                                      reqs_cache[sc.name])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        records.append(record(pol, arb, sc, B, label, sweep.seeds, res,
+                              wall))
+        if progress is not None:
+            mr = np.mean(records[-1]["metrics"]["byte_miss_ratio"])
+            progress(f"[{sweep.name}] {sc.name} B={B}({label}) "
+                     f"{pol}+{arb}: byte_miss={mr:.3f} [{wall:.2f}s]")
+    return result_cls(sweep=sweep, records=records,
+                      wall_s=time.perf_counter() - t_start, device=str(dev))
+
+
+def run_tier_sweep(sweep: TierSweep, *, engine: Engine | None = None,
+                   progress=None) -> TierSweepResult:
+    """Execute every tier cell on ``engine``'s device (default
+    ``Engine()``, the card): one ``Engine.replay_tier`` call per (policy,
+    arbiter, budget) cell, the seeds as independent tiers, emitting
+    ``SCHEMA_V2`` records with per-tenant sub-records.
+
+    >>> from repro_torch.bench import TierScenario, TierSweep
+    >>> sw = TierSweep("doc", entries=(("dac", "greedy"),), seeds=(0,),
+    ...                scenarios=(TierScenario(
+    ...                    "flux", trace="tenants(N=64,n_tenants=2,lo=8)",
+    ...                    T=300, budget=(32,)),))
+    >>> rec = run_tier_sweep(sw, engine=Engine(device="cpu")).records[0]
+    >>> rec["n_tenants"], len(rec["tenants"]), rec["budget"]
+    (2, 2, 32)
+    """
+    from ..tier import CacheTier
+
+    def build(pol, arb, sc, B):
+        return CacheTier(pol, n_tenants=sc.n_tenants, budget=B,
+                         arbiter=arb, k0=sc.k0)
+
+    return _run_cells(sweep, engine, build, "replay_tier",
+                      _tier_cell_record, TierSweepResult, progress)
+
+
+def run_fleet_sweep(sweep: FleetSweep, *, engine: Engine | None = None,
+                    progress=None) -> FleetSweepResult:
+    """Execute every fleet cell on ``engine``'s device (default
+    ``Engine()``, the card): one ``Engine.replay_fleet`` call per (policy,
+    arbiter, budget) cell, the seeds as independent fleets, emitting
+    ``SCHEMA_V2`` records with per-lane SLO telemetry.
+
+    >>> from repro_torch.bench import FleetScenario, FleetSweep
+    >>> sw = FleetSweep("doc", entries=(("dac(k_min=4)", "auction"),),
+    ...                 seeds=(0,), scenarios=(FleetScenario(
+    ...                     "pool", trace="fleet(N=64,n_lanes=2,rate=0.05,"
+    ...                     "mean_session=100,lo=8)", T=300, budget=(32,)),))
+    >>> rec = run_fleet_sweep(sw, engine=Engine(device="cpu")).records[0]
+    >>> rec["n_lanes"], len(rec["lanes"]), rec["budget"]
+    (2, 2, 32)
+    >>> sorted(rec["metrics"])[:3]
+    ['avg_k_total', 'byte_miss_ratio', 'jain']
+    """
+    from ..fleet import FleetTier
+
+    def build(pol, arb, sc, B):
+        return FleetTier(pol, n_lanes=sc.n_lanes, budget=B, arbiter=arb,
+                         k0=sc.k0, util_decay=sc.util_decay)
+
+    return _run_cells(sweep, engine, build, "replay_fleet",
+                      _fleet_cell_record, FleetSweepResult, progress)
 
 
 def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
@@ -302,8 +468,7 @@ def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
             t0 = time.perf_counter()
             res = engine.replay(pol, reqs_cache[sc.name], K,
                                 observe=sweep.observe, collect_info=False)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            _sync(dev)
         wall = time.perf_counter() - t0
         records.append(_cell_record(pol, sc, K, k_label, sweep.seeds,
                                     res, wall, avg_k=_avg_k(res, streamed)))

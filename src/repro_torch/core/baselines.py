@@ -546,6 +546,20 @@ _HASH_A = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
 _U32 = 0xFFFFFFFF
 
 
+def sketch_columns(key, rows: int, W: int):
+    """``[B]`` keys -> ``[B, rows]`` count-min columns: the reference's
+    uint32 multiply-shift (TinyLFU's, and the admission layer's), in int64
+    held to 32 bits after the add and the multiply (so EMPTY, 0xFFFFFFFF
+    as uint32, hashes as 0).  Every product stays below 2^63: the operand
+    is at most 2^31 after the add, each constant below 2^32."""
+    x = (key.to(torch.int64) + 1) & _U32
+    # the constants enter as scalars: a tensor built from them here would
+    # be a host-to-device copy inside the step
+    x = torch.stack([(x * a) & _U32 for a in _HASH_A[:rows]], -1)
+    x = x ^ (x >> 15)
+    return x & (W - 1)
+
+
 class TinyLFU(Policy):
     """LRU eviction + count-min-sketch admission filter with periodic
     halving (window ``window_factor * K``).
@@ -581,17 +595,7 @@ class TinyLFU(Policy):
         }
 
     def _hash(self, key, W):
-        """``[B]`` keys -> ``[B, rows]`` columns: the reference's uint32
-        multiply-shift, in int64 held to 32 bits after the add and the
-        multiply (so EMPTY, 0xFFFFFFFF as uint32, hashes as 0).  Every
-        product stays below 2^63: the operand is at most 2^31 after the
-        add, each constant below 2^32."""
-        x = (key.to(torch.int64) + 1) & _U32
-        # the constants enter as scalars: a tensor built from them here
-        # would be a host-to-device copy inside the step
-        x = torch.stack([(x * a) & _U32 for a in _HASH_A[: self.rows]], -1)
-        x = x ^ (x >> 15)
-        return x & (W - 1)
+        return sketch_columns(key, self.rows, W)
 
     @staticmethod
     def _estimate(sketch, h):

@@ -17,7 +17,11 @@ steps (the step plus the metric accumulation, or the writes of each step's
 info), captured once per replay over a static ``[B, chunk]`` request
 buffer and replayed once per chunk, with the last ``T % chunk`` steps run
 eagerly: the counterpart of ``lax.scan`` compiling the step into one
-device loop.  A capture that fails raises; nothing falls back to the
+device loop.  The same loop (:func:`run_steps`) drives the admission
+wrapper, whose rank bases launch kernel B1 once a step inside the graph,
+and the tier's and the fleet's steps (``Engine.replay_tier``,
+``Engine.replay_fleet``: DAC's budgeted plan in B1 over all tenants, then
+the arbiter).  A capture that fails raises; nothing falls back to the
 eager loop.  On the CPU every policy runs the plain loop (the rank
 policies the kernel's plain version).
 
@@ -37,7 +41,7 @@ import torch
 
 from .policy import Policy, RankPolicy, Request, StepInfo
 
-__all__ = ["Engine", "Metrics", "ReplayResult", "replay_lanes",
+__all__ = ["Engine", "Metrics", "ReplayResult", "replay_lanes", "run_steps",
            "miss_ratio", "mrr", "GRAPH_CHUNK"]
 
 # steps per CUDA graph of a slot policy's replay: on an H100 32 steps ran
@@ -170,13 +174,14 @@ def _sinks(policy, state, B, n, device, collect_info, want_obs):
     return info, obs
 
 
-def _steps(policy, reqs: Request, state, acc, sinks, at=0, want_obs=False):
+def _steps(policy, reqs: Request, state, acc, sinks, at=0):
     """``policy.step`` over the columns of ``reqs`` (``[B, n]``) from
     ``state``: each request folds into ``acc`` (unless it is ``None``) and
-    its info and observables go to column ``at + s`` of ``sinks``.
+    its info and observables go to column ``at + s`` of ``sinks`` (``(info,
+    obs)`` buffers, either ``None``; or ``sinks`` itself ``None``).
     Returns ``(state, acc)``.  Every loop of the slot policies, eager or
     captured, is this one."""
-    info_out, obs_out = sinks
+    info_out, obs_out = (None, None) if sinks is None else sinks
     for s in range(reqs.key.shape[1]):
         req = Request(reqs.key[:, s], reqs.size[:, s], reqs.cost[:, s])
         state, info = policy.step(state, req)
@@ -185,10 +190,32 @@ def _steps(policy, reqs: Request, state, acc, sinks, at=0, want_obs=False):
         if info_out is not None:
             for buf, x in zip(info_out, info):
                 buf[:, at + s] = x
-        if want_obs:
+        if obs_out is not None:
             for k, v in policy.observables(state).items():
                 obs_out[k][:, at + s] = v
     return state, acc
+
+
+def _slot_body(policy):
+    """A slot policy's steps as a body for :func:`run_steps`, over the
+    carry ``(state, acc)``."""
+    def run(reqs, carry, sinks, at):
+        return _steps(policy, reqs, *carry, sinks, at)
+    return run
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of nested dicts and tuples (NamedTuples
+    too) of the same structure; ``None`` stays ``None``."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple):
+        out = [_tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    return fn(*trees)
 
 
 def _capture(body):
@@ -200,36 +227,33 @@ def _capture(body):
     return graph.replay
 
 
-def _replay_graphed(policy, reqs: Request, state, acc, sinks, want_obs,
-                    chunk):
-    """The slot-policy loop on CUDA: one graph of ``chunk`` steps, captured
-    over static request, state and total buffers and replayed per chunk;
-    the tail runs eagerly.  Returns ``(state, acc)``."""
+def _replay_graphed(run, reqs: Request, carry, sinks, chunk):
+    """A step loop on CUDA: one graph of ``chunk`` steps of ``run``,
+    captured over static request, carry and sink buffers and replayed per
+    chunk; the tail runs eagerly.  ``run(block, carry, sinks, at)`` steps
+    through the columns of ``block`` (time on dim 1, as in ``reqs``) and
+    returns the new carry (nested dicts and tuples of tensors), writing
+    each step's outputs at column ``at + s`` of ``sinks`` (the same kind of
+    tree, time on dim 1, or ``None``).  The slot policies, the tier and
+    the fleet all loop through here.  Returns the final carry."""
     T = reqs.key.shape[1]
     n_full = T // chunk
     if n_full:
-        B, dev = reqs.key.shape[0], reqs.key.device
-        static_req = Request(*(torch.empty((B, chunk), dtype=x.dtype,
-                                           device=dev) for x in reqs))
-        static_state = {k: v.clone() for k, v in state.items()}
-        static_acc = None if acc is None else Metrics(
-            *(x.clone() for x in acc))
-        static_sinks = _sinks(policy, state, B, chunk, dev,
-                              sinks[0] is not None, want_obs)
+        def window(x):
+            return torch.empty((x.shape[0], chunk) + tuple(x.shape[2:]),
+                               dtype=x.dtype, device=x.device)
+
+        static_req = Request(*(window(x) for x in reqs))
+        static_carry = _tree_map(torch.clone, carry)
+        static_sinks = _tree_map(window, sinks)
         # one eager step on copies first, so that every kernel the step
-        # launches is loaded before the capture
-        _steps(policy, Request(*(x[:, :1] for x in reqs)),
-               {k: v.clone() for k, v in state.items()}, static_acc,
-               (None, None))
+        # launches (B1's library included) is loaded before the capture
+        run(Request(*(x[:, :1] for x in reqs)),
+            _tree_map(torch.clone, carry), None, 0)
 
         def body():
-            st, a = _steps(policy, static_req, static_state, static_acc,
-                           static_sinks, want_obs=want_obs)
-            for k, v in st.items():
-                static_state[k].copy_(v)
-            if a is not None:
-                for x, y in zip(static_acc, a):
-                    x.copy_(y)
+            out = run(static_req, static_carry, static_sinks, 0)
+            _tree_map(lambda dst, src: dst.copy_(src), static_carry, out)
 
         replay = _capture(body)
         for c in range(n_full):
@@ -237,16 +261,23 @@ def _replay_graphed(policy, reqs: Request, state, acc, sinks, want_obs,
             for x, y in zip(static_req, reqs):
                 x.copy_(y[:, lo:hi])
             replay()
-            if static_sinks[0] is not None:
-                for x, y in zip(sinks[0], static_sinks[0]):
-                    x[:, lo:hi] = y
-            if want_obs:
-                for k, y in static_sinks[1].items():
-                    sinks[1][k][:, lo:hi] = y
-        state, acc = static_state, static_acc
+            _tree_map(lambda dst, src: dst[:, lo:hi].copy_(src), sinks,
+                      static_sinks)
+        carry = static_carry
     tail = Request(*(x[:, n_full * chunk:] for x in reqs))
-    return _steps(policy, tail, state, acc, sinks, at=n_full * chunk,
-                  want_obs=want_obs)
+    return run(tail, carry, sinks, n_full * chunk)
+
+
+def run_steps(run, reqs: Request, carry, sinks=None,
+              chunk: int | None = None):
+    """Drive a step body (see :func:`_replay_graphed`) over the time axis
+    (dim 1) of ``reqs``: on CUDA through the graph loop at ``chunk`` steps
+    a graph (default :data:`GRAPH_CHUNK`; 0 runs the eager loop), on the
+    CPU as one plain loop.  Returns the final carry."""
+    chunk = GRAPH_CHUNK if chunk is None else int(chunk)
+    if reqs.key.device.type == "cuda" and chunk > 0:
+        return _replay_graphed(run, reqs, carry, sinks, chunk)
+    return run(reqs, carry, sinks, 0)
 
 
 def _replay_rank(policy: RankPolicy, reqs, state, want_obs, collect_info):
@@ -290,13 +321,8 @@ def replay_lanes(policy: Policy, reqs: Request, state: dict, *,
     dev = reqs.key.device
     acc = None if collect_info else _zero_acc(B, dev)
     sinks = _sinks(policy, state, B, T, dev, collect_info, want_obs)
-    chunk = GRAPH_CHUNK if chunk is None else int(chunk)
-    if dev.type == "cuda" and chunk > 0:
-        state, acc = _replay_graphed(policy, reqs, state, acc, sinks,
-                                     want_obs, chunk)
-    else:
-        state, acc = _steps(policy, reqs, state, acc, sinks,
-                            want_obs=want_obs)
+    state, acc = run_steps(_slot_body(policy), reqs, (state, acc), sinks,
+                           chunk)
     info, obs = sinks
     if collect_info:
         return ReplayResult(info, _sum_metrics(reqs, info), obs), state
@@ -356,6 +382,34 @@ class Engine:
         res, _ = replay_lanes(policy, reqs, state, observe=observe,
                               collect_info=collect_info)
         return _lane0(res) if single else res
+
+    def replay_tier(self, tier, requests, *, sizes=None, costs=None,
+                    observe: bool = False):
+        """Replay an interleaved multi-tenant stream (``[T, N]``, or
+        ``[S, T, N]`` for S independent streams) through a
+        :class:`repro_torch.tier.CacheTier`: per-tenant :class:`Metrics`
+        and time-mean occupancy; returns a
+        :class:`repro_torch.tier.TierResult`.  The tenants share one
+        budget, so their lanes are not independent."""
+        from ..tier import CacheTier, replay_tier
+        if not isinstance(tier, CacheTier):
+            raise TypeError(f"expected a CacheTier, got {type(tier).__name__}")
+        return replay_tier(tier, requests, sizes=sizes, costs=costs,
+                           observe=observe, device=self.device)
+
+    def replay_fleet(self, tier, requests, *, sizes=None, costs=None,
+                     observe: bool = False, mesh=None):
+        """Replay a dynamic-fleet stream (``-1`` keys = idle lane; ``[T,
+        N]`` or ``[S, T, N]``) through a :class:`repro_torch.fleet.FleetTier`:
+        tenant arrivals and departures, arbiter-priced capacity, per-lane
+        SLO telemetry.  Returns a :class:`repro_torch.fleet.FleetResult`.
+        ``mesh=`` (the lane axis sharded over devices) is not ported."""
+        from ..fleet import FleetTier, replay_fleet
+        if not isinstance(tier, FleetTier):
+            raise TypeError(
+                f"expected a FleetTier, got {type(tier).__name__}")
+        return replay_fleet(tier, requests, sizes=sizes, costs=costs,
+                            observe=observe, mesh=mesh, device=self.device)
 
     def replay_stream(self, policy, requests, K: int, *, sizes=None,
                       costs=None, chunk: int | None = None,

@@ -16,7 +16,8 @@ __all__ = ["state_from_reference", "state_to_numpy"]
 
 def state_from_reference(policy: Policy, arrays: dict,
                          device="cuda") -> dict:
-    """Turn a reference policy state ``{name: ndarray}`` into the port's
+    """Turn a reference policy state ``{name: ndarray}`` (nested for the
+    admission wrapper: ``{"base": {...}, "adm": {...}}``) into the port's
     ``[B, ...]`` state on ``device``.  An unbatched state gets a lane axis
     of 1; dtypes follow the port's ``init`` (int32 rows and scalars, int64
     LRU timestamps).  Keys the port's ``init`` lacks (DAC's arbiter
@@ -29,26 +30,36 @@ def state_from_reference(policy: Policy, arrays: dict,
     >>> tuple(st["cache"].shape), st["len"].tolist()
     ((1, 128), [4])
     """
-    template = policy.init(1, lanes=1, device="cpu")
+    return _from_tree(policy.init(1, lanes=1, device="cpu"), arrays, device,
+                      "state")
+
+
+def _from_tree(template: dict, arrays: dict, device, path: str) -> dict:
     out = {}
     for name, value in arrays.items():
-        value = np.asarray(value)
         like = template.get(name)
+        if isinstance(value, dict):
+            out[name] = _from_tree(like if isinstance(like, dict) else {},
+                                   value, device, f"{path}[{name!r}]")
+            continue
+        value = np.asarray(value)
         ndim = like.dim() if like is not None else 1
         dtype = like.dtype if like is not None else torch.int32
         if value.ndim == ndim - 1:
             value = value[None]
         elif value.ndim != ndim:
             raise ValueError(
-                f"state[{name!r}] has {value.ndim} dims; the port expects "
+                f"{path}[{name!r}] has {value.ndim} dims; the port expects "
                 f"{ndim - 1} (unbatched) or {ndim} (batched)")
         out[name] = torch.tensor(value, dtype=dtype, device=device)
     missing = set(template) - set(out)
     if missing:
-        raise ValueError(f"state lacks {sorted(missing)}")
+        raise ValueError(f"{path} lacks {sorted(missing)}")
     return out
 
 
 def state_to_numpy(state: dict) -> dict:
-    """The port's state as host numpy arrays, lane axis kept."""
-    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+    """The port's state as host numpy arrays (nested like the state),
+    lane axis kept."""
+    return {k: state_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in state.items()}

@@ -34,7 +34,9 @@ lane, the row in shared memory up to 200 KiB and in device memory past it.
 The source's header gives the design.
 
 ``LAUNCHES`` counts launches of the kernel: :func:`policy_replay` adds one
-where it launches, and nowhere else.
+where it launches, and nowhere else.  Inside a CUDA graph capture (the
+engine's graph loop, ``core/simulator.py``) the launch is recorded once
+and replayed with the graph, so it counts once, at capture.
 """
 from __future__ import annotations
 

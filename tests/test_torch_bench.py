@@ -244,9 +244,12 @@ def test_malformed_payload_is_refused(name):
 
 
 def test_tier_and_fleet_runners_name_the_roadmap():
+    # the tier and fleet runners are ported (ROADMAP A9, A10) and exported;
+    # the fleet's lane sharding still names its item (A13)
     from repro_torch.bench import runner
-    with pytest.raises(NotImplementedError, match="A9"):
-        runner.run_tier_sweep(None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        runner.run_fleet_sweep(None)
-    assert not hasattr(pb, "run_tier_sweep")
+    assert pb.run_tier_sweep is runner.run_tier_sweep
+    assert pb.run_fleet_sweep is runner.run_fleet_sweep
+    from repro_torch.fleet import FleetTier, replay_fleet
+    with pytest.raises(NotImplementedError, match="A13"):
+        replay_fleet(FleetTier("dac(k_min=4)", n_lanes=2, budget=32),
+                     np.zeros((8, 2), np.int32), mesh=object(), device="cpu")

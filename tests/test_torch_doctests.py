@@ -15,6 +15,13 @@ MODULES = [
     "repro_torch.core.baselines",
     "repro_torch.core.lirs_lhd",
     "repro_torch.core.state_io",
+    "repro_torch.core.admission",
+    "repro_torch.tier",
+    "repro_torch.tier.arbiter",
+    "repro_torch.tier.tier",
+    "repro_torch.fleet",
+    "repro_torch.fleet.fleet",
+    "repro_torch.fleet.telemetry",
     "repro_torch.data.traces",
     "repro_torch.data.ingest",
     "repro_torch.bench.scenario",

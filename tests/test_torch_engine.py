@@ -164,8 +164,14 @@ def test_engine_without_cuda_raises(monkeypatch):
 
 
 def test_unported_policy_names_the_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP.*A8"):
-        make_policy("admit(dac,filter=tinylfu)")
+    # admission is ported (ROADMAP A8); what the engine still lacks, the
+    # sharded fleet, names its ROADMAP item
+    assert make_policy("admit(dac,filter=tinylfu)").name == "admit"
+    from repro_torch.fleet import FleetTier
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        Engine(device="cpu").replay_fleet(
+            FleetTier("dac(k_min=4)", n_lanes=2, budget=32),
+            np.zeros((8, 2), np.int32), mesh=object())
     with pytest.raises(ValueError, match="unknown policy"):
         make_policy("nope")
 

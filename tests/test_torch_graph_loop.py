@@ -46,8 +46,8 @@ def test_graph_loop_equals_plain_loop(spec, chunk, collect_info,
                                     collect_info=collect_info)
     acc = None if collect_info else sim._zero_acc(B, "cpu")
     sinks = sim._sinks(pol, state, B, T, "cpu", collect_info, False)
-    got_state, acc = sim._replay_graphed(pol, reqs, state, acc, sinks,
-                                         False, chunk)
+    got_state, acc = sim._replay_graphed(sim._slot_body(pol), reqs,
+                                         (state, acc), sinks, chunk)
     for k, v in before.items():        # the caller's state is not written
         assert torch.equal(state[k], v), k
     for k, v in want_state.items():

@@ -228,3 +228,22 @@ def test_ingest_writers_equal_reference(tmp_path):
             getattr(mod, fn)(str(tmp_path / side / name), *args)
         assert (tmp_path / "port" / name).read_bytes() == \
             (tmp_path / "ref" / name).read_bytes(), fn
+
+
+def test_oracle_copy_equals_reference():
+    """The port's Python oracle is the reference's module, byte for byte,
+    and gives the same hits and Belady curve."""
+    from repro.core import oracle as ro
+    from repro_torch.core import oracle as po
+    assert (PORT / "core" / "oracle.py").read_bytes() == \
+        (ROOT / "src" / "repro" / "core" / "oracle.py").read_bytes()
+    assert sorted(po.ORACLES) == sorted(ro.ORACLES)
+    keys = rt.zipf_trace(N=40, T=600, alpha=0.9, seed=4)
+    sizes = rt.object_sizes(40, seed=4)[keys]
+    for name in sorted(ro.ORACLES):
+        a = ro.oracle_replay(name, keys, 6, sizes=sizes)
+        b = po.oracle_replay(name, keys, 6, sizes=sizes)
+        np.testing.assert_array_equal(b["hits"], a["hits"], err_msg=name)
+        assert b == {**a, "hits": b["hits"]}, name
+    np.testing.assert_array_equal(po.belady_opt(keys, 6),
+                                  ro.belady_opt(keys, 6))
