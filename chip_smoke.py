@@ -101,7 +101,21 @@ Phases, one JSON line each:
    over 1,000 steps on one cell of each kind; ``admit(dac)`` stepped on
    the card leaving its input state unwritten and equal to the CPU step by
    step (the gate's revert); DAC's resize laws on ``observe=True``
-   replays through B1; us a step and device operations a step.
+   replays through B1; us a step and device operations a step;
+12. campaign: a six-dataset corpus written at run time (one dataset per
+   dataset family, two traces of 1,000,000 requests each, sizes under
+   256 B; uncompressed oracleGeneral files and one gzipped CSV with
+   costs) and one planted bad file, through ``repro_torch.campaign``:
+   campaign A (fifo, lru, ac, dac x {S, L}, T cut to 10,000) inline on
+   the card and on the CPU in worker processes, every record and the
+   report equal; campaign B (climb, ac, dac x {S, L}, whole traces, one
+   B1 launch a 2^18-request chunk) in two spawned workers on the card,
+   which start with no B1 library built, and inline with a crash after
+   25 cells and a resume, the two stores' ``cells/`` equal byte for byte
+   and no cell run twice; dac and ac at L on one trace a dataset equal
+   to the Python oracle's reckoning; only the planted file quarantined;
+   the report's winners and MRR against FIFO, seconds a cell by policy
+   (ingest and characterisation, replay, store write) and B1's launches.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -117,6 +131,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1503,14 +1518,15 @@ def equal_runs(a, b, what):
             raise Mismatch(f"{what}: final state {k!r} differs")
 
 
-def cpu_workers():
-    """A pool of spawned worker processes for the plain CPU runs, which go
-    on while the card works; two cores stay with the main process."""
+def cpu_workers(n=None):
+    """A pool of ``n`` spawned worker processes for the plain CPU runs,
+    which go on while the card works; by default as many as leave two
+    cores with the main process, at most six."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
     return ProcessPoolExecutor(
-        max(1, min(6, (os.cpu_count() or 2) - 2)),
+        n or max(1, min(6, (os.cpu_count() or 2) - 2)),
         mp_context=multiprocessing.get_context("spawn"))
 
 
@@ -2199,6 +2215,419 @@ def phase_multi(dev):
              "s": time.perf_counter() - t_phase}, launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: a six-dataset campaign through repro_torch.campaign
+# ---------------------------------------------------------------------------
+
+# the corpus: one dataset per DATASET_FAMILIES entry, a trace per seed, each
+# CAMPAIGN_TRACE_T requests long (24 MB an oracleGeneral file)
+CAMPAIGN_TRACE_T = 1_000_000
+CAMPAIGN_TRACE_SEEDS = (0, 1)
+# the one trace written as a gzipped CSV with costs; the rest are
+# uncompressed oracleGeneral files with sizes
+CAMPAIGN_CSV = ("metakv", 0)
+# the planted bad trace: 10 bytes, not a whole 24-byte oracleGeneral record
+CAMPAIGN_PLANTED = "bad.oracleGeneral.bin"
+# campaign A: all four policies at T = 10,000, a cut (FIFO and LRU step
+# through the graph loop at 31-43 us a request, so a whole-trace slot cell
+# would take some 35 s; at 40,000 the phase took 274 s, and at 20,000 the
+# smoke ended at 990 s of its 1,200; PERF.md §4)
+CAMPAIGN_A_POLICIES = ("fifo", "lru", "ac", "dac")
+CAMPAIGN_A_T = 10_000
+# campaign B: the rank policies on the whole trace, nothing cut
+CAMPAIGN_B_POLICIES = ("climb", "ac", "dac")
+CAMPAIGN_CRASH_AFTER = 25
+# campaign B's cells held against the Python oracle: dac and ac at L on
+# the first trace of each dataset
+CAMPAIGN_ORACLE = (("dac", "L"), ("ac", "L"))
+# campaign B's spawned workers on the card
+CAMPAIGN_POOL_WORKERS = 2
+
+
+def write_campaign_trace(root, family, seed, T):
+    """One corpus trace from the port's generator: ``family``'s keys for
+    ``seed``, a size per object drawn in [1, 256) as
+    ``tools/make_corpus.py`` draws them, and (for the CSV) costs from
+    ``traces.fetch_costs``.  Returns the file's path."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import ingest, traces
+    keys = traces.family_trace(family, T, seed=seed)
+    fam = sorted(traces.DATASET_FAMILIES).index(family)
+    table = np.random.default_rng(1000 * fam + seed).integers(
+        1, 256, int(keys.max()) + 1)
+    sizes = table[keys]
+    d = Path(root) / family
+    d.mkdir(exist_ok=True)
+    if (family, seed) == CAMPAIGN_CSV:
+        path = d / f"{family}-{seed}.csv.gz"
+        ingest.write_csv(str(path), keys, sizes, traces.fetch_costs(sizes))
+    else:
+        path = d / f"{family}-{seed}.oracleGeneral.bin"
+        ingest.write_oracle_general(str(path), keys, sizes)
+    return str(path)
+
+
+def oracle_cell(path, policy, regime):
+    """The record of a whole-trace campaign cell reckoned without the
+    port's replay: the Python oracle (the reference's, as the port copies
+    it) steps through the trace as ingest reads it, and the totals are
+    summed as ``Engine.replay_stream`` sums them (float32 in request order
+    within each ``ingest.DEFAULT_CHUNK`` chunk, the chunks in float64).
+    Returns ``(K, metrics)``."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.bench.scenario import k_for
+    from repro_torch.core import ALIASES, oracle
+    from repro_torch.data import ingest
+    tr = ingest.load_trace(path)
+    T = len(tr.keys)
+    K = k_for(tr.n_objects, regime)
+    orc = oracle.ORACLES[ALIASES.get(policy, policy)](K)
+    hits = np.empty(T, dtype=bool)
+    k_sum = 0
+    track_k = hasattr(orc, "k")
+    for t, key in enumerate(tr.keys.tolist()):
+        hits[t] = orc.step(key)
+        if track_k:
+            k_sum += orc.k
+    sizes = (np.ones(T) if tr.sizes is None else tr.sizes).astype(np.float32)
+    costs = (np.ones(T) if tr.costs is None else tr.costs).astype(np.float32)
+    totals = np.zeros(4, np.float64)
+    for lo in range(0, T, ingest.DEFAULT_CHUNK):
+        part = slice(lo, lo + ingest.DEFAULT_CHUNK)
+        miss = ~hits[part]
+        totals += [np.cumsum(x, dtype=np.float32)[-1] for x in (
+            sizes[part], np.where(miss, sizes[part], np.float32(0)),
+            costs[part], np.where(miss, costs[part], np.float32(0)))]
+    n_hits = float(hits.sum())
+    metrics = {"miss_ratio": [(T - n_hits) / T], "hit_ratio": [n_hits / T],
+               "byte_miss_ratio": [float(totals[1] / totals[0])],
+               "penalty_ratio": [float(totals[3] / totals[2])]}
+    if track_k:
+        metrics["avg_k"] = [float(k_sum) / T]
+    return K, metrics
+
+
+def campaign_corpus(root, pool):
+    """Write the corpus (in ``pool``'s workers).  Returns the seconds it
+    took."""
+    from repro_torch.data.traces import DATASET_FAMILIES
+    t0 = time.perf_counter()
+    paths = [pool.submit(write_campaign_trace, root, fam, seed,
+                         CAMPAIGN_TRACE_T)
+             for fam in DATASET_FAMILIES for seed in CAMPAIGN_TRACE_SEEDS]
+    for f in paths:
+        f.result()
+    return time.perf_counter() - t0
+
+
+def campaign_manifests(root):
+    """Campaign B (the six datasets, whole traces) from a scan of the
+    corpus with frozen stats, and campaign A (T cut) over the same
+    datasets and the planted bad file (10 bytes of oracleGeneral, not a
+    whole 24-byte record, in a dataset of its own with no stats)."""
+    import dataclasses
+
+    from repro_torch.campaign import Dataset, Grid, scan_corpus
+    b = scan_corpus(root, name="smoke-b", grid=Grid(
+        policies=CAMPAIGN_B_POLICIES, K=("S", "L"), seeds=(0,)))
+    (Path(root) / CAMPAIGN_PLANTED).write_bytes(b"\x00" * 10)
+    a = dataclasses.replace(
+        b, name="smoke-a",
+        datasets=b.datasets + (Dataset(
+            name="planted", traces=((CAMPAIGN_PLANTED, "auto"),)),),
+        grid=Grid(policies=CAMPAIGN_A_POLICIES, K=("S", "L"), seeds=(0,),
+                  T=CAMPAIGN_A_T))
+    return a, b
+
+
+class CellTimer:
+    """Seconds of each inline cell's replay (``run_sweep``'s own record
+    time: the stream off disk and the replay, ending after the device's
+    results reach the host) and store write (``CampaignStore.put``), by
+    key, from wrappers around the two in the main process."""
+
+    def __init__(self):
+        self.replay, self.write = {}, {}
+
+    def __enter__(self):
+        from repro_torch.campaign import executor, store
+        self._saved = executor.run_sweep, store.CampaignStore.put
+        run_sweep, put = self._saved
+
+        def timed_sweep(sweep, **kw):
+            res = run_sweep(sweep, **kw)
+            self.replay[sweep.name.removeprefix("cell-")] = \
+                res.records[0]["wall_s"]
+            return res
+
+        def timed_put(st, key, payload):
+            t0 = time.perf_counter()
+            out = put(st, key, payload)
+            self.write[key] = time.perf_counter() - t0
+            return out
+
+        executor.run_sweep, store.CampaignStore.put = timed_sweep, timed_put
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.campaign import executor, store
+        executor.run_sweep, store.CampaignStore.put = self._saved
+
+    def split(self, store, manifest):
+        """Mean seconds a cell by policy: ingest and characterise (the
+        rest of the cell), replay, store write; cells that ran twice would
+        be counted twice (none do, which the phase checks)."""
+        from repro_torch.campaign import cell_key, plan_cells
+        policy = {cell_key(c): c.policy for c in plan_cells(manifest)}
+        rows = {}
+        for ev in journal(store):
+            if ev["event"] != "done":
+                continue
+            key = ev["key"]
+            replay, write = self.replay[key], self.write[key]
+            row = rows.setdefault(policy[key], [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ev["wall_s"] - replay - write
+            row[2] += replay
+            row[3] += write
+        return {p: {"cells": n, "ingest_characterise_s": a / n,
+                    "replay_s": r / n, "store_write_s": w / n}
+                for p, (n, a, r, w) in sorted(rows.items())}
+
+
+def journal(store):
+    with open(Path(store.root) / store.JOURNAL) as f:
+        return [json.loads(line) for line in f]
+
+
+def cells_tree(store):
+    """``{file name: bytes}`` of a store's ``cells/``."""
+    d = Path(store.cells_dir)
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def executed_once(store, n):
+    """The store's journal shows ``n`` cells done, none of them twice."""
+    done = [ev["key"] for ev in journal(store) if ev["event"] == "done"]
+    if len(done) != n or len(set(done)) != n:
+        raise AssertionError(f"{store.root}: {len(done)} cells done, "
+                             f"{len(set(done))} distinct; expected {n}")
+
+
+def rank_launches(manifest, chunk):
+    """B1 launches a campaign makes on the card: one a streamed chunk of
+    every rank-policy cell (slot policies and quarantined cells none)."""
+    import math
+
+    from repro_torch.campaign import plan_cells
+    from repro_torch.core import ALIASES
+    from repro_torch.data import ingest
+    n = 0
+    for c in plan_cells(manifest):
+        if ALIASES.get(c.policy, c.policy) not in RANK_POLICIES or \
+                c.trace.endswith(CAMPAIGN_PLANTED):
+            continue
+        T = ingest.count_requests(c.trace)
+        n += math.ceil((min(c.T, T) if c.T else T) / chunk)
+    return n
+
+
+def phase_campaign(dev, tmp):
+    """A six-dataset campaign through ``repro_torch.campaign`` on the card,
+    under ``tmp``: campaign A (four policies, T cut) inline on the card and
+    on the CPU in worker processes meanwhile, every record and the report
+    equal; campaign B (the rank policies, whole traces) in two spawned
+    workers on the card, which start with no B1 library built and build
+    it at once, into store 1, and inline with a crash after
+    CAMPAIGN_CRASH_AFTER cells and a resume into store 2, the two
+    ``cells/`` trees equal byte for byte; campaign B's CAMPAIGN_ORACLE
+    cells equal the Python oracle's reckoning.  Only the planted file is
+    quarantined.  Returns (summary, B1 launches in this process, the
+    report's text)."""
+    import os
+    import threading
+
+    import torch
+    from repro_torch.campaign import (CampaignStore, cell_key,
+                                      format_report, plan_cells,
+                                      render_report, run_campaign)
+    from repro_torch.data import ingest
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import policy_step as ps
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    root = tmp / "corpus"
+    root.mkdir()
+    # the CPU's campaign A takes all but four cores: the main process, the
+    # oracle's two workers and one more
+    cpu_n = max(1, (os.cpu_count() or 2) - 4)
+    with cpu_workers() as pool:
+        corpus_s = campaign_corpus(str(root), pool)
+    with cpu_workers(2) as pool:
+        t0 = time.perf_counter()
+        m_a, m_b = campaign_manifests(str(root))
+        manifest_s = time.perf_counter() - t0
+        first = {d.name: os.path.join(m_b.root, d.traces[0][0])
+                 for d in m_b.datasets}
+        oracle = {(ds, pol, reg): pool.submit(oracle_cell, path, pol, reg)
+                  for ds, path in first.items()
+                  for pol, reg in CAMPAIGN_ORACLE}
+
+        # campaign A on the CPU, in worker processes, while the card works
+        stores = {name: CampaignStore(str(tmp / name)) for name in
+                  ("a_card", "a_cpu", "b_pool", "b_resume")}
+        cpu_out = {}
+
+        def cpu_campaign():
+            try:
+                cpu_out["summary"] = run_campaign(
+                    m_a, stores["a_cpu"], workers=cpu_n, device="cpu")
+            except BaseException as exc:     # re-raised after the join
+                cpu_out["error"] = exc
+
+        cpu_thread = threading.Thread(target=cpu_campaign, daemon=True)
+        cpu_thread.start()
+
+        # B in spawned workers on the card, from no built B1 library
+        lib = _build.library_path("policy_step")
+        lib.unlink(missing_ok=True)
+        lib.with_suffix(".log").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        b_pool = run_campaign(m_b, stores["b_pool"],
+                              workers=CAMPAIGN_POOL_WORKERS, device=dev)
+        b_pool_s = time.perf_counter() - t0
+        if torch.device(dev).type == "cuda" and not lib.exists():
+            raise AssertionError("the spawned workers left no B1 library")
+
+        # A inline on the card
+        timer_a = CellTimer()
+        torch.cuda.synchronize()
+        ps.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with timer_a:
+            a_card = run_campaign(m_a, stores["a_card"], device=dev)
+        a_s = time.perf_counter() - t0
+        a_launches = ps.LAUNCHES
+
+        # B inline on the card: a crash after CAMPAIGN_CRASH_AFTER cells,
+        # then a resume from a fresh handle on the same directory
+        timer_b = CellTimer()
+        ps.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with timer_b:
+            crashed = run_campaign(m_b, stores["b_resume"], device=dev,
+                                   max_cells=CAMPAIGN_CRASH_AFTER)
+            resumed = run_campaign(
+                m_b, CampaignStore(stores["b_resume"].root), device=dev)
+        b_resume_s = time.perf_counter() - t0
+        b_launches = ps.LAUNCHES
+        card_s = time.perf_counter() - t_phase
+
+        t0 = time.perf_counter()
+        cpu_thread.join()
+        if "error" in cpu_out:
+            raise cpu_out["error"]
+        oracle = {k: f.result() for k, f in oracle.items()}
+        cpu_wait_s = time.perf_counter() - t0
+
+    # 1. quarantine: the planted file's cells, and nothing else
+    bad = [c for c in plan_cells(m_a) if c.trace.endswith(CAMPAIGN_PLANTED)]
+    for name, st in stores.items():
+        want_q = sorted(cell_key(c) for c in bad) if name[0] == "a" else []
+        if st.quarantined() != want_q:
+            raise AssertionError(f"store {name} quarantined "
+                                 f"{st.quarantined()}; expected {want_q}")
+    n_a, n_b = len(plan_cells(m_a)) - len(bad), len(plan_cells(m_b))
+    for summary, n in ((a_card, n_a), (cpu_out["summary"], n_a),
+                       (b_pool, n_b)):
+        if len(summary.executed) != n or summary.remaining:
+            raise AssertionError(f"campaign: {summary.counts}, expected "
+                                 f"{n} executed")
+    if (len(crashed.executed), len(resumed.executed), resumed.skipped) != \
+            (CAMPAIGN_CRASH_AFTER, n_b - CAMPAIGN_CRASH_AFTER,
+             CAMPAIGN_CRASH_AFTER):
+        raise AssertionError(f"crash and resume: {crashed.counts}, "
+                             f"{resumed.counts}")
+
+    # 2. campaign A: the card's records equal the CPU's, key for key
+    card, cpu = stores["a_card"], stores["a_cpu"]
+    if card.completed() != cpu.completed():
+        raise Mismatch("campaign A: the card and the CPU completed "
+                       "different cells")
+    for key in card.completed():
+        got, want = card.get(key), cpu.get(key)
+        for part in ("records", "extras", "config"):
+            if got[part] != want[part]:
+                rec = got["extras"]["campaign"]["cell"]
+                raise Mismatch(
+                    f"campaign A {rec['trace']} {rec['policy']} "
+                    f"K={rec['K']}: {part} on the card "
+                    f"{got['records'][0]['metrics']} vs the CPU "
+                    f"{want['records'][0]['metrics']}")
+        if got["provenance"]["backend"] != torch.device(dev).type:
+            raise AssertionError(f"campaign A {key}: provenance "
+                                 f"{got['provenance']}")
+
+    # 3. campaign B: CAMPAIGN_ORACLE cells equal the oracle's reckoning
+    by_cell = {}
+    for key, payload in stores["b_pool"].payloads():
+        c = payload["extras"]["campaign"]["cell"]
+        by_cell[c["trace"], c["policy"], c["K"]] = payload["records"][0]
+    for (ds, pol, reg), (K, metrics) in oracle.items():
+        rec = by_cell[first[ds], pol, reg]
+        if rec["K"] != K or rec["metrics"] != metrics:
+            raise Mismatch(f"campaign B {ds} {pol} {reg} (K {rec['K']}): "
+                           f"card {rec['metrics']} vs the oracle K {K} "
+                           f"{metrics}")
+
+    # 4. spawned workers vs crash and resume: equal bytes, no cell twice
+    if cells_tree(stores["b_pool"]) != cells_tree(stores["b_resume"]):
+        raise Mismatch("campaign B: store 1 (2 spawned workers) and store "
+                       "2 (crash and resume) differ")
+    executed_once(stores["b_pool"], n_b)
+    executed_once(stores["b_resume"], n_b)
+
+    # 5. the report: the card's store A against the CPU's
+    rep_card, rep_cpu = render_report(card), render_report(cpu)
+    if rep_card != rep_cpu:
+        raise Mismatch("campaign A: the card's report differs from the "
+                       "CPU's")
+
+    want_a, want_b = (rank_launches(m, ingest.DEFAULT_CHUNK)
+                      for m in (m_a, m_b))
+    if (a_launches, b_launches) != (want_a, want_b):
+        raise AssertionError(f"campaign: B1 launched {a_launches} (A) and "
+                             f"{b_launches} (B, crash and resume) times; "
+                             f"expected {want_a} and {want_b}")
+    K = sorted({r["K"] for _, p in card.payloads() for r in p["records"]})
+    return ({"phase": "campaign",
+             "corpus": {"datasets": [d.name for d in m_b.datasets],
+                        "traces": sum(len(d.traces) for d in m_b.datasets),
+                        "requests_per_trace": CAMPAIGN_TRACE_T,
+                        "csv_gz": "/".join(map(str, CAMPAIGN_CSV)),
+                        "planted": CAMPAIGN_PLANTED,
+                        "write_s": corpus_s, "scan_s": manifest_s},
+             "cut": f"campaign A T {CAMPAIGN_A_T} of {CAMPAIGN_TRACE_T}",
+             "a": {"cells": n_a, "quarantined": len(bad), "K": K,
+                   "s": a_s, "policy_replay": a_launches,
+                   "cells_equal_cpu": n_a, "report_equal_cpu": True,
+                   "per_cell_s": timer_a.split(card, m_a),
+                   "cpu_workers": cpu_n},
+             "b": {"cells": n_b, "pool_workers": CAMPAIGN_POOL_WORKERS,
+                   "pool_s": b_pool_s, "resume_s": b_resume_s,
+                   "crash_after": CAMPAIGN_CRASH_AFTER,
+                   "policy_replay_resume": b_launches,
+                   "stores_equal": True,
+                   "oracle_cells_equal": len(oracle),
+                   "per_cell_s": timer_b.split(stores["b_resume"], m_b)},
+             "card_s": card_s, "cpu_wait_s": cpu_wait_s,
+             "s": time.perf_counter() - t_phase},
+            a_launches + b_launches, format_report(rep_card))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2257,16 +2686,21 @@ def main() -> int:
     emit(res)
     res, multi_launches = phase_multi(dev)
     emit(res)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-campaign-") as tmp:
+        res, campaign_launches, report_text = phase_campaign(dev, tmp)
+    emit(res)
+    print(report_text, flush=True)
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
         "name": "policy_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
         "replaces": "src/repro/kernels/policy_step.py:247",
-        # the main path's replays, Table III's, the corpus sweeps' and the
-        # tier, fleet and admission sweeps' (counted at capture there)
+        # the main path's replays, Table III's, the corpus sweeps', the
+        # tier, fleet and admission sweeps' (counted at capture there) and
+        # the inline campaigns'
         "launches": launches + table_launches + corpus_launches
-        + multi_launches,
+        + multi_launches + campaign_launches,
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

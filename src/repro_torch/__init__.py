@@ -24,6 +24,10 @@ Ported so far:
 * the sweep and report layer (``bench``: ``Scenario``, ``Sweep``,
   ``run_sweep``, the MRR tables) and the trace registry and real-trace
   ingestion (``data``), so the paper's Table III runs on the card;
+* the campaign layer (``campaign``: manifests, a crash-safe store of one
+  file per cell, a resumable and shardable executor, the store-only
+  report; ``python -m repro_torch.campaign``), so a trace corpus runs on
+  the card;
 * serving of the dense attention LMs (``configs``, ``models``,
   ``serving``, ``launch.serve``): prefill and decode with an unbounded KV
   cache or the DAC-bounded slot pool, attention on the hand-written

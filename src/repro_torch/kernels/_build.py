@@ -9,6 +9,9 @@ raises: there is no fallback.
 Every pointer and the stream pass as ``ctypes.c_void_p`` (a bare Python
 int would be cut to 32 bits); each C entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
+Every failure here (no ``nvcc``, a failed build, a library that does not
+load, a launch that returns an error) raises :class:`KernelError`, which
+callers can tell apart from a fault of their inputs.
 """
 from __future__ import annotations
 
@@ -26,6 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelError(RuntimeError):
+    """A kernel that could not be built, loaded or launched."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -33,7 +40,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH or $CUDA_HOME/bin); the CUDA kernels are "
             "built from source at first use")
     return str(path)
@@ -71,7 +78,7 @@ def build(names) -> dict:
         out.with_suffix(".log").write_text(log)
         reports[name] = log
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
@@ -79,10 +86,13 @@ def build(names) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    try:
+        return ctypes.CDLL(str(library_path(name)))
+    except OSError as exc:
+        raise KernelError(f"loading {library_path(name)}: {exc}") from exc
 
 
 def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status}")
+        raise KernelError(f"{what}: CUDA error {status}")

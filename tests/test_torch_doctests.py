@@ -28,6 +28,10 @@ MODULES = [
     "repro_torch.bench.runner",
     "repro_torch.bench.results",
     "repro_torch.bench.report",
+    "repro_torch.campaign.manifest",
+    "repro_torch.campaign.store",
+    "repro_torch.campaign.executor",
+    "repro_torch.campaign.report",
     "repro_torch.specs",
 ]
 

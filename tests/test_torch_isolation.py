@@ -48,6 +48,32 @@ def test_port_modules_import_without_jax_or_reference():
     assert len(MODULES) >= 12
 
 
+@pytest.mark.parametrize("entry", ["repro_torch.campaign",
+                                   "repro_torch.campaign.make_manifest"])
+def test_campaign_entry_points_import_without_jax_or_reference(entry):
+    """``python -m`` of each campaign entry point (its ``--help``) loads
+    neither jax nor the reference package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{entry!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({entry!r}, run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert 'repro_torch.campaign' in sys.modules\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage: python -m " + entry in out.stdout
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
