@@ -38,10 +38,13 @@ Phases, one JSON line each:
    against their plain versions in f32 and bf16 at deepseek-7b's shapes
    (B2 ``[8, 2048, 32, 128]`` causal; B3 at S = 2112 and at S = 512 with a
    sparse ``valid``), gemma2-27b's (GQA 32/16, window 4096, softcap 50,
-   S = 8192, B = 1) and prime lengths; B3 also at mixtral-8x22b's and
-   qwen1.5-110b's head groups (g = 6, 8), musicgen-medium's D = 64, a
-   short prefix in a long buffer, S = 17, g = 12 with D 72 / Dv 40, D 34 /
-   Dv 18 (rows copied element by element) and D = Dv = 256; B2 also at
+   S = 8192, B = 1) and prime lengths; B2 also at deepseek-v2-236b's MLA
+   prefill (H = Hkv = 128, D 192 / Dv 128, B = 2; timed at B = 8 beside
+   its bound and each SDPA backend that takes D != Dv); B3 also at
+   mixtral-8x22b's and qwen1.5-110b's head groups (g = 6, 8),
+   musicgen-medium's D = 64, a short prefix in a long buffer, S = 17,
+   g = 12 with D 72 / Dv 40, D 34 / Dv 18 (rows copied element by
+   element) and D = Dv = 256; B2 also at
    ``FLASH_EDGE_SHAPES`` (D = Dv = 256, D and Dv not multiples of 16, GQA
    8, S = 17, D != Dv, non-causal with Sq != Sk); in bf16 B2 and B3 also
    element by element on bf16's rounding scale (``BF16_C``,
@@ -66,13 +69,13 @@ Phases, one JSON line each:
    both regimes (and 3 capped steps in the bounded one, below): logits
    within 1e-4 and DAC's control state equal;
 8. slot policies: the twelve slot policies (FIFO, LRU, BLRU, LFU, Clock,
-   Sieve, TwoQ, ARC, TinyLFU, Hyperbolic, LIRS, LHD) on the first 4,000
+   Sieve, TwoQ, ARC, TinyLFU, Hyperbolic, LIRS, LHD) on the first 2,000
    requests of every dataset family, 3 seeds, lognormal sizes and fetch
    costs, at both ``k_for`` regimes (K = 819 / 1,638 for L, 8 / 16 for S;
    families of one K share a replay): the CUDA graph loop gives the same
    hits, byte and penalty totals and final state bit for bit as the plain
    loop on the CPU (worker processes) and, over the first
-   ``SLOT_EAGER_T`` = 1,000 requests, as the eager loop on the card; us
+   ``SLOT_EAGER_T`` = 500 requests, as the eager loop on the card; us
    per step of the graph and the eager loop; device operations a step
    (``torch.profiler``) on the first group (``graph_sweep.py`` times other
    graph sizes);
@@ -88,12 +91,12 @@ Phases, one JSON line each:
    streamed and materialized: identical records, the rank cells' equal to
    the CPU's;
 11. tier, fleet, admission: ``benchmarks/tenant_sweep.py``'s grid (7
-   entries x flux / contended x 3 seeds, T cut to 20,000 from 60,000)
+   entries x flux / contended x 3 seeds, T cut to 10,000 from 60,000)
    through ``run_tier_sweep``, ``benchmarks/fleet_sweep.py``'s (6 entries x
-   pool / churn x 3 seeds, T = 16,000) through ``run_fleet_sweep`` and,
+   pool / churn x 3 seeds, T cut to 8,000 from 16,000) through ``run_fleet_sweep`` and,
    of ``benchmarks/robustness.py``'s grid (N = 4,096), lru, dac,
-   admit(lru) and admit(dac) x 4 scenarios x {S, L} x 2 seeds (T =
-   20,000) through ``run_sweep``, on the card: DAC's budgeted plan (and
+   admit(lru) and admit(dac) x 4 scenarios x {S, L} x 2 seeds (T cut to
+   10,000 from 40,000) through ``run_sweep``, on the card: DAC's budgeted plan (and
    the rank bases under admission) as one B1 launch a step inside the CUDA
    graph loop, launches counted against their formula (a launch inside a
    graph counts once, at capture), every record equal to the same runner
@@ -103,19 +106,34 @@ Phases, one JSON line each:
    step (the gate's revert); DAC's resize laws on ``observe=True``
    replays through B1; us a step and device operations a step;
 12. campaign: a six-dataset corpus written at run time (one dataset per
-   dataset family, two traces of 1,000,000 requests each, sizes under
+   dataset family, two traces of 500,000 requests each, sizes under
    256 B; uncompressed oracleGeneral files and one gzipped CSV with
    costs) and one planted bad file, through ``repro_torch.campaign``:
    campaign A (fifo, lru, ac, dac x {S, L}, T cut to 10,000) inline on
    the card and on the CPU in worker processes, every record and the
    report equal; campaign B (climb, ac, dac x {S, L}, whole traces, one
    B1 launch a 2^18-request chunk) in two spawned workers on the card,
-   which start with no B1 library built, and inline with a crash after
-   25 cells and a resume, the two stores' ``cells/`` equal byte for byte
-   and no cell run twice; dac and ac at L on one trace a dataset equal
+   which start with no B1 library built, and inline over two of the
+   datasets (24 cells) with a crash after 9 cells and a resume, its
+   ``cells/`` equal to the spawned run's files of the same cells byte for
+   byte and no cell run twice; dac and ac at L on one trace a dataset equal
    to the Python oracle's reckoning; only the planted file quarantined;
    the report's winners and MRR against FIFO, seconds a cell by policy
-   (ingest and characterisation, replay, store write) and B1's launches.
+   (ingest and characterisation, replay, store write) and B1's launches;
+13. architectures: deepseek-v2-236b (MLA + MoE, 6 of 60 layers, B = 8,
+   2,048-token prompts, 64 steps), mixtral-8x22b (windowed GQA + MoE, 4 of
+   56 layers, B = 2, 4,608-token prompts past its 4,096 window, 32
+   steps), jamba-1.5-large-398b (its first 5 of 72 layers: four Mamba, two
+   of them MoE, and one attention layer; B = 2, 2,048, 32 steps) and
+   xlstm-125m (all 12 layers; B = 8, 2,048, 64 steps) at full width in
+   bf16, unbounded and with the DAC pool of 512 slots: B2 once a prefill
+   per attention and MLA layer, B3 once a step per attention layer (MLA's
+   absorbed decode is plain torch), finite logits, the capacity's drops,
+   KV bytes, DAC's sizes, and two profiled decode steps with the device
+   ms of the MoE, MLA and DAC control; then deepseek-v2-236b and mixtral
+   at 2 layers in f32 with kernels against plain versions as phase 7
+   does, MoE routing equal too unless a near-tie in the router's
+   probabilities is reported.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -866,12 +884,17 @@ def randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-# name, B, S, H, Hkv, D, Dv, window, softcap
+# name, B, S, H, Hkv, D, Dv, window, softcap.  deepseek-v2-236b's MLA
+# prefill (D = dn + dr = 192, Dv = 128, 128 heads without GQA) is checked
+# at B = 2 (at the serve path's B = 8 the plain version's f32 scores alone
+# would be 17 GB) and timed at B = 8 (``b2_mla_timing``)
 FLASH_SHAPES = [
     ("deepseek-7b", 8, 2048, 32, 32, 128, 128, None, 0.0),
     ("gemma2-27b", 1, 8192, 32, 16, 128, 128, 4096, 50.0),
     ("prime", 2, 1021, 8, 2, 96, 64, 300, 30.0),
+    ("deepseek-v2-236b mla", 2, 2048, 128, 128, 192, 128, None, 0.0),
 ]
+B2_MLA_TIMED = (8, 2048, 128, 128, 192, 128)     # B, S, H, Hkv, D, Dv
 # B2's edge cases, each in f32 and bf16 against the plain version (own
 # generator): name, B, Sq, Sk, H, Hkv, D, Dv, window, softcap, causal.
 # D = Dv = 256 (the 4-warp tensor-core tiles), D and Dv not multiples of 16
@@ -1014,6 +1037,60 @@ def b3_dropped_tile(q, k, v, valid, cap):
     return o.reshape(B, H, v.shape[3])
 
 
+def sdpa_backends(qt, kt, vt):
+    """``scaled_dot_product_attention(is_causal=True)`` on these inputs:
+    the ms of each fused backend that takes them (or why it refuses), and
+    the default call's ms and the kernels it launched (which name the
+    backend it chose).  The math backend is left out: at the MLA shape its
+    scores alone would be 8.6 GB."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([be]):
+                out[be.name] = cuda_ms(lambda: sdpa(qt, kt, vt,
+                                                    is_causal=True))
+        except RuntimeError as e:      # the backend does not take this shape
+            out[be.name] = f"refused: {str(e).splitlines()[0][:120]}"
+    out["default_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    out["default_kernels"] = sorted(
+        {e.key[:80] for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA})
+    return out
+
+
+def b2_mla_timing(fa, gen, dev):
+    """B2 at deepseek-v2-236b's MLA prefill shape (``B2_MLA_TIMED``, bf16,
+    causal, the default scale 1/sqrt(192)): ms, bound, TFLOP/s, and SDPA's
+    backends on the same inputs (timed only)."""
+    import torch
+    B, S, H, Hkv, D, Dv = B2_MLA_TIMED
+    dt = torch.bfloat16
+    q = randn(gen, (B, S, H, D), dt, dev)
+    k = randn(gen, (B, S, Hkv, D), dt, dev)
+    v = randn(gen, (B, S, Hkv, Dv), dt, dev)
+    b_ms, b_by, flops = flash_bound(B, S, H, Hkv, D, Dv, dt)
+    row = {"shape": [B, S, H, Hkv, D, Dv], "dtype": "bfloat16",
+           "ms": cuda_ms(lambda: fa.flash_attention(q, k, v)),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["bound_share"] = b_ms / row["ms"]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    del q, k, v
+    row["sdpa"] = sdpa_backends(qt, kt, vt)
+    del qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_attention(dev):
     import torch
     from repro_torch.kernels import decode_attention as da
@@ -1022,17 +1099,24 @@ def phase_attention(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, err = [], {"flash": 0.0, "decode": 0.0}
     timed = {}
+    # the MLA shape draws from its own generator, so that the other cases'
+    # inputs stay those of earlier runs
+    gen_mla = torch.Generator(device=dev).manual_seed(SEED + 2)
     for name, B, S, H, Hkv, D, Dv, win, cap in FLASH_SHAPES:
+        g = gen_mla if name.endswith(" mla") else gen
         for dtype in (torch.float32, torch.bfloat16):
-            q = randn(gen, (B, S, H, D), dtype, dev)
-            k = randn(gen, (B, S, Hkv, D), dtype, dev)
-            v = randn(gen, (B, S, Hkv, Dv), dtype, dev)
+            q = randn(g, (B, S, H, D), dtype, dev)
+            k = randn(g, (B, S, Hkv, D), dtype, dev)
+            v = randn(g, (B, S, Hkv, Dv), dtype, dev)
             kw = dict(window=win, softcap=cap)
             case = b2_case(fa, q, k, v, kw, f"B2 {name} {dtype}")
             err["flash"] = max(err["flash"], case["max_abs_err"])
             rows.append({"kernel": "B2", "case": name, "dtype": str(dtype),
                          "shape": [B, S, H, Hkv, D, Dv], "window": win,
                          "softcap": cap, **case})
+            if name == "deepseek-v2-236b mla" and dtype == torch.bfloat16:
+                rows[-1]["plain_ms"] = cuda_ms(
+                    lambda: fa.attention_dense(q, k, v, **kw), reps=1)
             if name == "deepseek-7b" and dtype == torch.bfloat16:
                 # the serve path's shape: kernel, plain, SDPA (timed only)
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
@@ -1051,6 +1135,7 @@ def phase_attention(dev):
                     flops / timed["flash"]["ms"] / 1e9)
                 del qt, kt, vt
             del q, k, v
+    timed["flash_mla"] = b2_mla_timing(fa, gen_mla, dev)
     gen_edge = torch.Generator(device=dev).manual_seed(SEED + 1)
     for (name, B, Sq, Sk, H, Hkv, D, Dv, win, cap,
          causal) in FLASH_EDGE_SHAPES:
@@ -1161,12 +1246,15 @@ def prompt_tokens(cfg, B, S, dev, n=0):
     return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
 
 
-def profile_ms(fn, n=1):
+def profile_ms(fn, n=1, ranges=()):
     """Run ``fn`` ``n`` times under ``torch.profiler``: host ms per call,
     device-busy ms per call (sum of kernel times; one stream, so kernels do
     not overlap), the idle share, B3's device ms per call (its kernels'
     names hold ``decode_attn``), kernel launches per call and the kernels
-    that take most device time."""
+    that take most device time; with ``ranges`` (``record_function``
+    labels), the device ms per call of the kernels launched inside each
+    and the times each was entered over the ``n`` calls (a range nested in
+    one of its own label counts once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1182,21 +1270,40 @@ def profile_ms(fn, n=1):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # a range's own device event spans its kernels: not a kernel
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key not in ranges):
             dev[e.key] = (us / 1e3 / n, e.count / n)
     busy = sum(ms for ms, _ in dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"host_ms": wall, "device_busy_ms": busy,
+    split = {}
+
+    def kernels_us(e):
+        """Device time of the kernels the ops under ``e`` launched (a
+        range's own device event, its span, left out)."""
+        own = 0 if e.name in ranges else sum(k.duration for k in e.kernels)
+        return own + sum(kernels_us(c) for c in e.cpu_children)
+    if ranges:
+        split = {"range_device_ms": {label: 0.0 for label in ranges},
+                 "range_entries": {label: 0 for label in ranges}}
+        for e in prof.events():
+            # a range also leaves a device event of its name: count its
+            # host event only
+            if (e.name not in ranges
+                    or e.device_type != torch.autograd.DeviceType.CPU):
+                continue
+            up = e.cpu_parent
+            while up is not None and up.name != e.name:
+                up = up.cpu_parent
+            if up is None:                      # outermost of its label
+                split["range_device_ms"][e.name] += kernels_us(e) / 1e3 / n
+                split["range_entries"][e.name] += 1
+    return {**split, "host_ms": wall, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall if wall else None,
             "b3_device_ms": sum(ms for k, (ms, _) in dev.items()
                                 if "decode_attn" in k),
             "kernel_launches": sum(c for _, c in dev.values()),
             "top_kernels_ms": {k[:60]: ms for k, (ms, _) in top}}
-
-
-def kv_bytes(state):
-    return sum(st[n].numel() * st[n].element_size()
-               for st in state["layers"] for n in ("k", "v"))
 
 
 def phase_serve(dev):
@@ -1209,6 +1316,7 @@ def phase_serve(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_params, param_count
     from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving import serve_step as ss
 
     cfg = ARCHS["deepseek-7b"]
     L = cfg.n_layers
@@ -1246,7 +1354,7 @@ def phase_serve(dev):
                "decode_tok_s": SERVE_B * SERVE_GEN / dec_s,
                "ms_per_step": dec_s * 1e3 / SERVE_GEN,
                "b2_launches": b2, "b3_launches": b3,
-               "kv_bytes_allocated": kv_bytes(state),
+               "kv_bytes_allocated": ss.kv_bytes(state),
                "final_pos": int(state["pos"][0])}
         holder = {"state": state, "tok": toks[-1]}
 
@@ -1296,9 +1404,220 @@ def phase_serve(dev):
             "first_disagreement_step": first_diff}
 
 
+def moe_layers(cfg):
+    return sum(bool(sp.moe and cfg.moe) for sp in cfg.layer_specs())
+
+
+def serve_vs_plain(dev, cfg, B, S, steps, budget, cap_steps, n=1):
+    """One regime of the serve path with the kernels against the same path
+    with their plain versions (prefill + ``steps`` teacher-forced decode
+    steps, then ``cap_steps`` with ``kv_caps`` when bounded): f32 logits
+    within ``SERVE_LOGIT_TOL`` up to the first step where DAC's control or
+    an MoE routing differs, which only a near-tie may explain (the plain
+    run's top-2 mass margin, or the gap between the router's k-th and
+    (k+1)-th probability, within ``MASS_TOL``).  Launches: B2 one a prefill
+    per attention and MLA layer, B3 one a step per attention layer."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, moe
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving import serve_step as ss
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    kinds = [sp.kind for sp in cfg.layer_specs()]
+    n_b2 = sum(k in ("attn", "mla") for k in kinds)
+    n_b3 = kinds.count("attn")
+    n_moe = moe_layers(cfg)
+    toks = prompt_tokens(cfg, B, S + steps + cap_steps, dev, n=n)
+    rec = {"plain": False, "margins": [], "routes": []}
+    top_slot, route = ss._top_slot, moe.route
+
+    def recording_top(mass, valid):
+        if rec["plain"]:
+            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+            rec["margins"][-1].append(float((top2[:, 0] - top2[:, 1]).min()))
+        return top_slot(mass, valid)
+
+    def recording_route(x, w, c):
+        idx, gates, probs = route(x, w, c)
+        top = probs.topk(c.moe.top_k + 1, dim=-1).values
+        gap = float((top[..., -2] - top[..., -1]).min())
+        rec["routes"].append((idx.clone(), gap))
+        return idx, gates, probs
+
+    runs = {}
+    ss._top_slot, moe.route = recording_top, recording_route
+    try:
+        for impl in ("kernel", "plain"):
+            fa.LAUNCHES = da.LAUNCHES = 0
+            rec.update(plain=impl == "plain", margins=[], routes=[])
+            state, last = prefill(params, cfg, tokens=toks[:, :S],
+                                  max_len=S + steps + cap_steps,
+                                  budget=budget, impl=impl)
+            logs, ctrls = [last], []
+            n_steps = steps + (cap_steps if budget else 0)
+            for t in range(S, S + n_steps):
+                rec["margins"].append([])
+                caps = None
+                if t >= S + steps:
+                    # one cap a sequence, as an arbiter would grant
+                    caps = kv_caps_for(next(
+                        st for st in state["layers"]
+                        if "ctrl" in st)["ctrl"]["k_active"])
+                state, lg = decode_step(params, cfg, state, token=toks[:, t],
+                                        kv_caps=caps, impl=impl)
+                logs.append(lg)
+                if budget:
+                    ctrls.append([{k: x.clone() for k, x in
+                                   st["ctrl"].items()}
+                                  for st in state["layers"] if "ctrl" in st])
+            want = (n_b2, n_b3 * n_steps)
+            got = (fa.LAUNCHES, da.LAUNCHES)
+            if got != (want if impl == "kernel" else (0, 0)):
+                raise AssertionError(f"{cfg.name} {budget} {impl}: launches "
+                                     f"{got}, expected {want}")
+            if len(rec["routes"]) != n_moe * (1 + n_steps):
+                raise AssertionError(f"{cfg.name}: {len(rec['routes'])} "
+                                     f"routings, expected {n_moe} a pass")
+            runs[impl] = (logs, ctrls, [min(m, default=float("inf"))
+                                        for m in rec["margins"]],
+                          list(rec["routes"]))
+            del state
+    finally:
+        ss._top_slot, moe.route = top_slot, route
+    (klogs, kctrl, _, kroutes), (plogs, pctrl, pmarg, proutes) = (
+        runs["kernel"], runs["plain"])
+    errs = [(a - b).abs().max().item() for a, b in zip(klogs, plogs)]
+    ctrl_diff = [t for t, (a, b) in enumerate(zip(kctrl, pctrl))
+                 if any(not torch.equal(x[k], y[k])
+                        for x, y in zip(a, b) for k in x)]
+    near = [t for t in ctrl_diff if pmarg[t] <= MASS_TOL]
+    # routing call c belongs to the logits at index c // n_moe (0: prefill)
+    route_diff = [c for c, ((a, _), (b, _)) in enumerate(zip(kroutes,
+                                                               proutes))
+                  if not torch.equal(a, b)]
+    route_near = [c for c in route_diff if proutes[c][1] <= MASS_TOL]
+    row = {"logits_max_abs_err": max(errs), "per_step_err": errs,
+           "tol": SERVE_LOGIT_TOL}
+    if budget:
+        row.update(ctrl_steps_differing=ctrl_diff, near_tie_steps=near,
+                   min_top2_margin=float(np.min(pmarg)))
+    if n_moe:
+        row.update(routing_calls=len(proutes),
+                   routing_calls_differing=route_diff,
+                   routing_near_ties=route_near,
+                   min_router_gap=min(g for _, g in proutes))
+    if ctrl_diff and ctrl_diff[0] not in near:
+        raise Mismatch(f"serve vs plain {cfg.name} {budget}: ctrl differs at "
+                       f"step {ctrl_diff[0]} with a top-2 margin "
+                       f"{pmarg[ctrl_diff[0]]} > {MASS_TOL}")
+    if route_diff and route_diff[0] not in route_near:
+        raise Mismatch(f"serve vs plain {cfg.name} {budget}: routing call "
+                       f"{route_diff[0]} differs with a router gap "
+                       f"{proutes[route_diff[0]][1]} > {MASS_TOL}")
+    first = len(errs)
+    if ctrl_diff:
+        first = ctrl_diff[0] + 1
+    if route_diff:
+        first = min(first, route_diff[0] // n_moe)
+    if max(errs[:first], default=0.0) > SERVE_LOGIT_TOL:
+        raise Mismatch(f"serve vs plain {cfg.name} {budget}: logits differ "
+                       f"by {max(errs[:first])} > {SERVE_LOGIT_TOL}")
+    row["logits_compared"] = first
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_serve_vs_plain(dev):
     """The serve path with the kernels against the same path with their
     plain versions, at full width and 2 layers in f32."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=2,
+                              param_dtype="float32")
+    steps = 8
+    out = {regime: serve_vs_plain(dev, cfg, SERVE_B, SERVE_S, steps, budget,
+                                  CAP_STEPS)
+           for regime, budget in (("unbounded", 0),
+                                  ("bounded", SERVE_BUDGET))}
+    return {"phase": "serve_vs_plain", "arch": cfg.name, "layers": 2,
+            "dtype": "float32", "batch": SERVE_B, "prompt": SERVE_S,
+            "steps": steps, "budget": SERVE_BUDGET,
+            "capped_steps": CAP_STEPS, **out,
+            "kv_caps_law": kv_caps_law(dev)}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the served architectures beyond dense attention
+# ---------------------------------------------------------------------------
+
+# name, layers kept of the config's, B, prompt, greedy steps; at full width,
+# bf16, seeded random weights, unbounded and with the DAC pool of
+# ARCH_BUDGET slots
+ARCH_SERVE = (
+    # MLA + MoE (160 experts, top 6, 2 shared); 6 of 60 layers: 49.8 GB of
+    # weights, room left for the prefill's dispatch buffers
+    ("deepseek-v2-236b", 6, 8, 2048, 64),
+    # windowed GQA 48/8 + MoE (8 experts, top 2); 4 of 56 layers; the
+    # prompt passes the 4,096 window, so it binds in B2 and B3
+    ("mixtral-8x22b", 4, 2, 4608, 32),
+    # the first 5 of 72 layers: four Mamba layers (two with MoE, 16
+    # experts of width 24,576) and the attention layer at index 4
+    ("jamba-1.5-large-398b", 5, 2, 2048, 32),
+    # mLSTM + sLSTM, nothing cut
+    ("xlstm-125m", 12, 8, 2048, 64),
+)
+ARCH_BUDGET = 512
+# serve vs plain in f32 at 2 layers: name, B, prompt, teacher-forced steps
+ARCH_VS_PLAIN = (("deepseek-v2-236b", 2, 1024, 8),
+                 ("mixtral-8x22b", 1, 4608, 8))
+# the device ranges a decode step's profile splits out
+STEP_RANGES = {"moe": (("repro_torch.models.moe", "moe_apply"),),
+               "mla": (("repro_torch.models.mla", "mla_latent"),
+                       ("repro_torch.models.mla", "mla_attend")),
+               "dac_control": (("repro_torch.serving.kv_cache", "insert"),
+                               ("repro_torch.serving.kv_cache", "hit"),
+                               ("repro_torch.serving.kv_cache", "resize"),
+                               ("repro_torch.serving.serve_step",
+                                "_top_slot"))}
+
+
+def profile_split(fn, n=2):
+    """``profile_ms`` of ``n`` calls of ``fn`` with the device ms split into
+    the serve step's MoE FFNs, MLA attention (latent + absorbed attention)
+    and DAC control (insert, hit, resize, top slot): each of those
+    functions runs inside a ``record_function`` range while profiled."""
+    import importlib
+
+    import torch
+    saved = []
+
+    def ranged(orig, label):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(label):
+                return orig(*a, **kw)
+        return wrapped
+    try:
+        for label, targets in STEP_RANGES.items():
+            for mod_name, attr in targets:
+                mod = importlib.import_module(mod_name)
+                saved.append((mod, attr, getattr(mod, attr)))
+                setattr(mod, attr, ranged(getattr(mod, attr), label))
+        return profile_ms(fn, n=n, ranges=tuple(STEP_RANGES))
+    finally:
+        for mod, attr, orig in reversed(saved):
+            setattr(mod, attr, orig)
+
+
+def serve_arch(dev, name, layers, B, S, gen):
+    """One architecture at full width and ``layers`` deep: prefill + ``gen``
+    greedy decode steps, unbounded and with the DAC pool."""
     import dataclasses
 
     import numpy as np
@@ -1306,93 +1625,181 @@ def phase_serve_vs_plain(dev):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, moe, param_count
     from repro_torch.serving import decode_step, prefill
     from repro_torch.serving import serve_step as ss
 
-    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=2,
-                              param_dtype="float32")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         device=dev)
-    steps = 8
-    toks = prompt_tokens(cfg, SERVE_B, SERVE_S + steps + CAP_STEPS, dev,
-                         n=1)
-    margins = []                 # plain run: top-2 mass margin per call
-    attend = ss.attend_decode
+    t_arch = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS[name], n_layers=layers)
+    specs = cfg.layer_specs()
+    n_b2 = sum(sp.kind in ("attn", "mla") for sp in specs)
+    n_b3 = sum(sp.kind == "attn" for sp in specs)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = host_s(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    res = {"arch": name, "layers": layers,
+           "layers_of_config": ARCHS[name].n_layers,
+           "kinds": [sp.kind + ("+moe" if sp.moe and cfg.moe else "")
+                     for sp in specs],
+           "params": param_count(cfg), "param_bytes": sum(
+               x.numel() * x.element_size() for x in _leaves(params)),
+           "batch": B, "prompt": S, "gen": gen, "budget": ARCH_BUDGET,
+           "init_s": init_s,
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    tokens = prompt_tokens(cfg, B, S, dev)
+    max_len = S + gen + 2                      # two profiled steps at the end
+    dispatch, drops = moe.dispatch, []
 
-    def recording(q, k, v, valid, **kw):
-        o, mass = attend(q, k, v, valid, **kw)
-        if kw.get("impl") == "plain":
-            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
-            margins[-1].append(float((top2[:, 0] - top2[:, 1]).min()))
-        return o, mass
+    def counting(e_flat, E, C):
+        slot, keep = dispatch(e_flat, E, C)
+        drops.append((~keep).sum())
+        return slot, keep
+    seqs = {}
+    for regime, budget in (("unbounded", 0), ("bounded", ARCH_BUDGET)):
+        fa.LAUNCHES = da.LAUNCHES = 0
+        drops.clear()
+        moe.dispatch = counting
+        try:
+            (state, logits), pre_s = host_s(lambda: prefill(
+                params, cfg, tokens=tokens, max_len=max_len, budget=budget))
+        finally:
+            moe.dispatch = dispatch
+        if fa.LAUNCHES != n_b2:
+            raise AssertionError(f"{name} {regime} prefill launched B2 "
+                                 f"{fa.LAUNCHES} times; expected {n_b2}")
+        toks = [logits.argmax(-1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            state, logits = decode_step(params, cfg, state, token=toks[-1],
+                                        eps=0.5, k_min=16)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        if da.LAUNCHES != n_b3 * gen:
+            raise AssertionError(f"{name} {regime} decode launched B3 "
+                                 f"{da.LAUNCHES} times; expected "
+                                 f"{n_b3 * gen}")
+        if not (logits.shape == (B, cfg.vocab)
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{name} {regime}: bad logits")
+        seqs[regime] = torch.stack(toks, 1).cpu()
+        row = {"prefill_s": pre_s, "decode_s": dec_s,
+               "decode_tok_s": B * gen / dec_s,
+               "ms_per_step": dec_s * 1e3 / gen,
+               "b2_launches": fa.LAUNCHES, "b3_launches": da.LAUNCHES,
+               "moe_choices_dropped_in_prefill": int(sum(
+                   int(d) for d in drops)),
+               "moe_choices_in_prefill": (B * S * cfg.moe.top_k
+                                          * sum(bool(sp.moe)
+                                                for sp in specs)
+                                          if cfg.moe else 0),
+               "kv_bytes_allocated": ss.kv_bytes(state)}
+        holder = {"state": state, "tok": toks[-1]}
 
-    out = {}
-    ss.attend_decode = recording
-    try:
-        for regime, budget in (("unbounded", 0), ("bounded", SERVE_BUDGET)):
-            runs = {}
-            for impl in ("kernel", "plain"):
-                fa.LAUNCHES = da.LAUNCHES = 0
-                margins.clear()
-                state, last = prefill(params, cfg, tokens=toks[:, :SERVE_S],
-                                      max_len=SERVE_S + steps, budget=budget,
-                                      impl=impl)
-                logs, ctrls = [last], []
-                n_steps = steps + (CAP_STEPS if budget else 0)
-                for t in range(SERVE_S, SERVE_S + n_steps):
-                    margins.append([])
-                    caps = None
-                    if t >= SERVE_S + steps:
-                        # one cap a sequence, as an arbiter would grant
-                        caps = kv_caps_for(
-                            state["layers"][0]["ctrl"]["k_active"])
-                    state, lg = decode_step(params, cfg, state,
-                                            token=toks[:, t], kv_caps=caps,
-                                            impl=impl)
-                    logs.append(lg)
-                    if budget:
-                        ctrls.append([{k: x.clone() for k, x in
-                                       st["ctrl"].items()}
-                                      for st in state["layers"]])
-                want = (cfg.n_layers, cfg.n_layers * n_steps)
-                got = (fa.LAUNCHES, da.LAUNCHES)
-                if got != (want if impl == "kernel" else (0, 0)):
-                    raise AssertionError(f"{regime} {impl}: launches {got}")
-                runs[impl] = (logs, ctrls, [min(m) for m in margins]
-                              if impl == "plain" else [])
-            (klogs, kctrl, _), (plogs, pctrl, pmarg) = (runs["kernel"],
-                                                        runs["plain"])
-            errs = [(a - b).abs().max().item() for a, b in zip(klogs, plogs)]
-            ctrl_diff = [t for t, (a, b) in enumerate(zip(kctrl, pctrl))
-                         if any(not torch.equal(x[n], y[n])
-                                for x, y in zip(a, b) for n in x)]
-            near = [t for t in ctrl_diff if pmarg[t] <= MASS_TOL]
-            row = {"logits_max_abs_err": max(errs),
-                   "per_step_err": errs, "tol": SERVE_LOGIT_TOL}
-            if budget:
-                row.update(ctrl_steps_differing=ctrl_diff,
-                           near_tie_steps=near,
-                           min_top2_margin=float(np.min(pmarg)))
-            out[regime] = row
-            if ctrl_diff and ctrl_diff[0] not in near:
-                raise Mismatch(f"serve vs plain {regime}: ctrl differs at "
-                               f"step {ctrl_diff[0]} with a top-2 margin "
-                               f"{pmarg[ctrl_diff[0]]} > {MASS_TOL}")
-            first = ctrl_diff[0] if ctrl_diff else len(errs)
-            if max(errs[:first + 1]) > SERVE_LOGIT_TOL:
-                raise Mismatch(f"serve vs plain {regime}: logits differ by "
-                               f"{max(errs[:first + 1])} > "
-                               f"{SERVE_LOGIT_TOL}")
-    finally:
-        ss.attend_decode = attend
+        def one_step():
+            holder["state"], lg = decode_step(params, cfg, holder["state"],
+                                              token=holder["tok"], eps=0.5,
+                                              k_min=16)
+            holder["tok"] = lg.argmax(-1)
+        row["decode_step_profile"] = profile_split(one_step, n=2)
+        state = holder["state"]
+        pos = int(state["pos"][0])
+        pooled = [(sp, st) for sp, st in zip(specs, state["layers"])
+                  if sp.kind in ss.CACHE_KEYS]
+        # a range whose patch missed its callee would read 0 ms: each one
+        # the served layers run must have been entered
+        entries = row["decode_step_profile"]["range_entries"]
+        want = {"moe": bool(cfg.moe) and any(sp.moe for sp in specs),
+                "mla": any(sp.kind == "mla" for sp in specs),
+                "dac_control": bool(budget and pooled)}
+        missed = [k for k, on in want.items() if on and not entries[k]]
+        if missed:
+            raise AssertionError(f"{name} {regime}: the profile's ranges "
+                                 f"{missed} recorded no event")
+        slot_bytes = [sum(st[k][0, 0].numel() * st[k].element_size()
+                          for k in ss.CACHE_KEYS[sp.kind])
+                      for sp, st in pooled]
+        if budget and pooled:
+            ks = torch.stack([st["ctrl"]["k_active"]
+                              for _, st in pooled]).cpu().numpy()
+            live = torch.stack([st["ctrl"]["length"]
+                                for _, st in pooled]).cpu()
+            row.update(k_active_min=int(ks.min()),
+                       k_active_median=float(np.median(ks)),
+                       k_active_max=int(ks.max()),
+                       live_slots_per_layer_seq=[int(live.min()),
+                                                 int(live.max())],
+                       kv_bytes_live=int(sum(
+                           int(n) * b for n, b in zip(live.sum(1),
+                                                      slot_bytes))))
+            win = [(sp.window, st) for sp, st in pooled if sp.window]
+            if win:
+                row["live_slots_outside_window"] = sum(int(
+                    ((~st["ctrl"]["free"])
+                     & (st["ctrl"]["slot_pos"] <= pos - w)).sum())
+                    for w, st in win)
+        else:
+            row["kv_bytes_live"] = B * pos * sum(slot_bytes)
+            win = [sp.window for sp, _ in pooled if sp.window]
+            if win:
+                row["cached_positions_outside_window"] = (
+                    B * sum(max(0, pos - w + 1) for w in win))
+        row["final_pos"] = pos
+        res[regime] = row
+        del state, logits, holder
+        torch.cuda.empty_cache()
+    same = seqs["bounded"] == seqs["unbounded"]
+    res["greedy_agreement"] = float(same.float().mean())
+    if not any(sp.kind in ss.CACHE_KEYS for sp in specs) and not bool(
+            same.all()):
+        raise AssertionError(f"{name}: no layer holds a KV pool, yet the "
+                             f"bounded run's tokens differ")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
     del params
     torch.cuda.empty_cache()
-    return {"phase": "serve_vs_plain", "arch": cfg.name, "layers": 2,
-            "dtype": "float32", "batch": SERVE_B, "prompt": SERVE_S,
-            "steps": steps, "budget": SERVE_BUDGET,
-            "capped_steps": CAP_STEPS, **out,
-            "kv_caps_law": kv_caps_law(dev)}
+    res["s"] = time.perf_counter() - t_arch
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_archs(dev):
+    """Phase 13: deepseek-v2-236b, mixtral-8x22b, jamba-1.5-large-398b and
+    xlstm-125m served at full width (``ARCH_SERVE``), then the serve path
+    with kernels against plain versions in f32 at 2 layers for the MLA and
+    the windowed model (``ARCH_VS_PLAIN``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    t0 = time.perf_counter()
+    served = [serve_arch(dev, *row) for row in ARCH_SERVE]
+    vs_plain = []
+    for name, B, S, steps in ARCH_VS_PLAIN:
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], n_layers=2,
+                                  param_dtype="float32")
+        vs_plain.append({"arch": name, "layers": 2, "dtype": "float32",
+                         "batch": B, "prompt": S, "steps": steps,
+                         "budget": ARCH_BUDGET, "capped_steps": CAP_STEPS,
+                         **{regime: serve_vs_plain(dev, cfg, B, S, steps,
+                                                   budget, CAP_STEPS, n=2)
+                            for regime, budget in (
+                                ("unbounded", 0),
+                                ("bounded", ARCH_BUDGET))},
+                         "s": time.perf_counter() - t1})
+    launches = {"b2": sum(r[g]["b2_launches"] for r in served
+                          for g in ("unbounded", "bounded")),
+                "b3": sum(r[g]["b3_launches"] for r in served
+                          for g in ("unbounded", "bounded"))}
+    return ({"phase": "archs", "served": served, "serve_vs_plain": vs_plain,
+             "s": time.perf_counter() - t0}, launches)
 
 
 # bounded decode steps with one kv_caps entry a sequence, after phase 7's
@@ -1443,14 +1850,17 @@ def kv_caps_law(dev, k0=64):
 
 SLOT_POLICIES = ("fifo", "lru", "blru", "lfu", "clock", "sieve", "twoq",
                  "arc", "tinylfu", "hyperbolic", "lirs", "lhd")
-SLOT_T = 4_000
+# the slot phase at 2,000 requests (4,000 until the smoke had to fit a
+# slower host than the one it was measured on; PERF.md §4)
+SLOT_T = 2_000
 # the eager loop replays the first SLOT_EAGER_T requests only: it is host
 # bound (0.2-4.2 ms a step, PERF.md §5); the graph replays those too
-SLOT_EAGER_T = 1_000
+SLOT_EAGER_T = 500
 SLOT_SEEDS = 3
-# Table III at the reference's T = 60,000 if the phase fits in 420 s on the
-# card, else 20,000 (PERF.md §4 records the choice and the measurement)
-TABLE_T = 20_000
+# Table III at T = 10,000, a cut from the reference's 60,000: at 20,000 the
+# phase took 299 s of the smoke's 998 s, and a slower host ran the smoke
+# past its 1,200 (PERF.md §4 records the choice and the measurement)
+TABLE_T = 10_000
 TABLE_SEEDS = (0, 1, 2)
 # benchmarks/mrr_table.py's row order
 TABLE_POLICIES = (
@@ -1793,15 +2203,15 @@ def phase_corpus(dev):
 # bases one request a launch, inside the CUDA graph loop)
 # ---------------------------------------------------------------------------
 
-# benchmarks/tenant_sweep.py's grid at T = 20,000 (its own T is 60,000: cut
+# benchmarks/tenant_sweep.py's grid at T = 10,000 (its own T is 60,000: cut
 # to keep the smoke inside its time; PERF.md §4)
-TIER_T = 20_000
-# benchmarks/fleet_sweep.py's grid at the size of the reference's committed
-# run (experiments/bench/BENCH_fleet.json)
-FLEET_T = 16_000
+TIER_T = 10_000
+# benchmarks/fleet_sweep.py's grid at half the size of the reference's
+# committed run (experiments/bench/BENCH_fleet.json, T = 16,000)
+FLEET_T = 8_000
 # benchmarks/robustness.py's grid (N = 4,096) for the admission policies
-# and their bases, at T = 20,000 (its own T is 40,000)
-ADMIT_T = 20_000
+# and their bases, at T = 10,000 (its own T is 40,000)
+ADMIT_T = 10_000
 MULTI_SEEDS = (0, 1, 2)
 ADMIT_SEEDS = (0, 1)
 MULTI_EAGER_T = 1_000
@@ -2203,7 +2613,8 @@ def phase_multi(dev):
                                    f"{w and w['metrics']}")
             out[kind]["cells_equal_cpu"] = len(got)
     return ({"phase": "tier_fleet_admission",
-             "cut": f"tier T {TIER_T} (tenant_sweep's 60,000); admission "
+             "cut": f"tier T {TIER_T} (tenant_sweep's 60,000); fleet T "
+                    f"{FLEET_T} (BENCH_fleet's 16,000); admission "
                     f"T {ADMIT_T} (robustness's 40,000), its policies "
                     f"{list(ADMIT_POLICIES)} only",
              "chunk": sim.GRAPH_CHUNK,
@@ -2220,8 +2631,10 @@ def phase_multi(dev):
 # ---------------------------------------------------------------------------
 
 # the corpus: one dataset per DATASET_FAMILIES entry, a trace per seed, each
-# CAMPAIGN_TRACE_T requests long (24 MB an oracleGeneral file)
-CAMPAIGN_TRACE_T = 1_000_000
+# CAMPAIGN_TRACE_T requests long (12 MB an oracleGeneral file; 1,000,000
+# until the smoke had to fit a slower host, PERF.md §4), so that a
+# whole-trace cell still streams through two of ingest's 2^18-request chunks
+CAMPAIGN_TRACE_T = 500_000
 CAMPAIGN_TRACE_SEEDS = (0, 1)
 # the one trace written as a gzipped CSV with costs; the rest are
 # uncompressed oracleGeneral files with sizes
@@ -2236,7 +2649,12 @@ CAMPAIGN_A_POLICIES = ("fifo", "lru", "ac", "dac")
 CAMPAIGN_A_T = 10_000
 # campaign B: the rank policies on the whole trace, nothing cut
 CAMPAIGN_B_POLICIES = ("climb", "ac", "dac")
-CAMPAIGN_CRASH_AFTER = 25
+# campaign B's inline crash and resume runs over two datasets' 24 cells,
+# a cut: the spawned run already replays all 72, and the resume's law
+# (each cell done once, the stores' files equal) does not depend on which
+# cells (all 72 took 70.9 s; PERF.md §4)
+CAMPAIGN_RESUME_DATASETS = ("alibaba", "wiki")
+CAMPAIGN_CRASH_AFTER = 9
 # campaign B's cells held against the Python oracle: dac and ac at L on
 # the first trace of each dataset
 CAMPAIGN_ORACLE = (("dac", "L"), ("ac", "L"))
@@ -2440,12 +2858,14 @@ def phase_campaign(dev, tmp):
     on the CPU in worker processes meanwhile, every record and the report
     equal; campaign B (the rank policies, whole traces) in two spawned
     workers on the card, which start with no B1 library built and build
-    it at once, into store 1, and inline with a crash after
-    CAMPAIGN_CRASH_AFTER cells and a resume into store 2, the two
-    ``cells/`` trees equal byte for byte; campaign B's CAMPAIGN_ORACLE
+    it at once, into store 1, and inline over CAMPAIGN_RESUME_DATASETS
+    with a crash after CAMPAIGN_CRASH_AFTER cells and a resume into store
+    2, whose ``cells/`` equal store 1's files of the same cells byte for
+    byte; campaign B's CAMPAIGN_ORACLE
     cells equal the Python oracle's reckoning.  Only the planted file is
     quarantined.  Returns (summary, B1 launches in this process, the
     report's text)."""
+    import dataclasses
     import os
     import threading
 
@@ -2470,6 +2890,11 @@ def phase_campaign(dev, tmp):
         t0 = time.perf_counter()
         m_a, m_b = campaign_manifests(str(root))
         manifest_s = time.perf_counter() - t0
+        m_r = dataclasses.replace(m_b, name="smoke-b-resume", datasets=tuple(
+            d for d in m_b.datasets if d.name in CAMPAIGN_RESUME_DATASETS))
+        if len(m_r.datasets) != len(CAMPAIGN_RESUME_DATASETS):
+            raise AssertionError(f"datasets {[d.name for d in m_b.datasets]}"
+                                 f" lack {CAMPAIGN_RESUME_DATASETS}")
         first = {d.name: os.path.join(m_b.root, d.traces[0][0])
                  for d in m_b.datasets}
         oracle = {(ds, pol, reg): pool.submit(oracle_cell, path, pol, reg)
@@ -2518,10 +2943,10 @@ def phase_campaign(dev, tmp):
         ps.LAUNCHES = 0
         t0 = time.perf_counter()
         with timer_b:
-            crashed = run_campaign(m_b, stores["b_resume"], device=dev,
+            crashed = run_campaign(m_r, stores["b_resume"], device=dev,
                                    max_cells=CAMPAIGN_CRASH_AFTER)
             resumed = run_campaign(
-                m_b, CampaignStore(stores["b_resume"].root), device=dev)
+                m_r, CampaignStore(stores["b_resume"].root), device=dev)
         b_resume_s = time.perf_counter() - t0
         b_launches = ps.LAUNCHES
         card_s = time.perf_counter() - t_phase
@@ -2541,13 +2966,14 @@ def phase_campaign(dev, tmp):
             raise AssertionError(f"store {name} quarantined "
                                  f"{st.quarantined()}; expected {want_q}")
     n_a, n_b = len(plan_cells(m_a)) - len(bad), len(plan_cells(m_b))
+    n_r = len(plan_cells(m_r))
     for summary, n in ((a_card, n_a), (cpu_out["summary"], n_a),
                        (b_pool, n_b)):
         if len(summary.executed) != n or summary.remaining:
             raise AssertionError(f"campaign: {summary.counts}, expected "
                                  f"{n} executed")
     if (len(crashed.executed), len(resumed.executed), resumed.skipped) != \
-            (CAMPAIGN_CRASH_AFTER, n_b - CAMPAIGN_CRASH_AFTER,
+            (CAMPAIGN_CRASH_AFTER, n_r - CAMPAIGN_CRASH_AFTER,
              CAMPAIGN_CRASH_AFTER):
         raise AssertionError(f"crash and resume: {crashed.counts}, "
                              f"{resumed.counts}")
@@ -2584,11 +3010,14 @@ def phase_campaign(dev, tmp):
                            f"{metrics}")
 
     # 4. spawned workers vs crash and resume: equal bytes, no cell twice
-    if cells_tree(stores["b_pool"]) != cells_tree(stores["b_resume"]):
-        raise Mismatch("campaign B: store 1 (2 spawned workers) and store "
-                       "2 (crash and resume) differ")
+    pool_tree, resume_tree = (cells_tree(stores[n])
+                              for n in ("b_pool", "b_resume"))
+    if len(resume_tree) != n_r or any(pool_tree.get(name) != data
+                                      for name, data in resume_tree.items()):
+        raise Mismatch("campaign B: store 2 (crash and resume) differs from "
+                       "store 1 (2 spawned workers) on its cells")
     executed_once(stores["b_pool"], n_b)
-    executed_once(stores["b_resume"], n_b)
+    executed_once(stores["b_resume"], n_r)
 
     # 5. the report: the card's store A against the CPU's
     rep_card, rep_cpu = render_report(card), render_report(cpu)
@@ -2597,7 +3026,7 @@ def phase_campaign(dev, tmp):
                        "CPU's")
 
     want_a, want_b = (rank_launches(m, ingest.DEFAULT_CHUNK)
-                      for m in (m_a, m_b))
+                      for m in (m_a, m_r))
     if (a_launches, b_launches) != (want_a, want_b):
         raise AssertionError(f"campaign: B1 launched {a_launches} (A) and "
                              f"{b_launches} (B, crash and resume) times; "
@@ -2610,7 +3039,8 @@ def phase_campaign(dev, tmp):
                         "csv_gz": "/".join(map(str, CAMPAIGN_CSV)),
                         "planted": CAMPAIGN_PLANTED,
                         "write_s": corpus_s, "scan_s": manifest_s},
-             "cut": f"campaign A T {CAMPAIGN_A_T} of {CAMPAIGN_TRACE_T}",
+             "cut": f"campaign A T {CAMPAIGN_A_T} of {CAMPAIGN_TRACE_T}; "
+                    f"the resume over {n_r} of B's {n_b} cells",
              "a": {"cells": n_a, "quarantined": len(bad), "K": K,
                    "s": a_s, "policy_replay": a_launches,
                    "cells_equal_cpu": n_a, "report_equal_cpu": True,
@@ -2619,10 +3049,12 @@ def phase_campaign(dev, tmp):
              "b": {"cells": n_b, "pool_workers": CAMPAIGN_POOL_WORKERS,
                    "pool_s": b_pool_s, "resume_s": b_resume_s,
                    "crash_after": CAMPAIGN_CRASH_AFTER,
+                   "resume_cells": n_r,
+                   "resume_datasets": list(CAMPAIGN_RESUME_DATASETS),
                    "policy_replay_resume": b_launches,
                    "stores_equal": True,
                    "oracle_cells_equal": len(oracle),
-                   "per_cell_s": timer_b.split(stores["b_resume"], m_b)},
+                   "per_cell_s": timer_b.split(stores["b_resume"], m_r)},
              "card_s": card_s, "cpu_wait_s": cpu_wait_s,
              "s": time.perf_counter() - t_phase},
             a_launches + b_launches, format_report(rep_card))
@@ -2690,6 +3122,8 @@ def main() -> int:
         res, campaign_launches, report_text = phase_campaign(dev, tmp)
     emit(res)
     print(report_text, flush=True)
+    res, arch_launches = phase_archs(dev)
+    emit(res)
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
@@ -2708,8 +3142,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:107",
+        # phase 6's prefills and phase 13's
         "launches": serve["unbounded"]["b2_launches"]
-        + serve["bounded"]["b2_launches"],
+        + serve["bounded"]["b2_launches"] + arch_launches["b2"],
         "max_abs_err": attn_err["flash"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -2717,8 +3152,9 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:136",
+        # phase 6's decode steps and phase 13's
         "launches": serve["unbounded"]["b3_launches"]
-        + serve["bounded"]["b3_launches"],
+        + serve["bounded"]["b3_launches"] + arch_launches["b3"],
         "max_abs_err": attn_err["decode"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],

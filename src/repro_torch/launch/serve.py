@@ -5,9 +5,12 @@ paper's DynamicAdaptiveClimb bounded KV pool.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --smoke --prompt-len 64 --gen 32 --budget 48 --device cpu
 
-Weights are random, from a ``torch.Generator`` seeded with ``--seed``;
-prompts come from numpy with the same seed.  ``--device`` defaults to
-``cuda``, where attention runs on kernels B2 (prefill) and B3 (decode).
+Every configuration of ``repro_torch.configs`` serves: attention, MLA,
+MoE, Mamba and xLSTM layers (recurrent layers keep O(1) state and ignore
+``--budget``).  Weights are random, from a ``torch.Generator`` seeded
+with ``--seed``; prompts come from numpy with the same seed.  ``--device``
+defaults to ``cuda``, where attention and MLA prefill run on kernel B2
+and attention decode on kernel B3.
 """
 from __future__ import annotations
 
@@ -81,9 +84,9 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"[serve] decoded {args.gen} tokens x {B} seqs in {dt:.2f}s "
           f"({args.gen * B / dt:.1f} tok/s)")
-    if args.budget:
-        ks = torch.stack([st["ctrl"]["k_active"] for st in state["layers"]])
-        ks = ks.cpu().numpy()
+    ks = [st["ctrl"]["k_active"] for st in state["layers"] if "ctrl" in st]
+    if ks:                   # bounded, and the arch has attention layers
+        ks = torch.stack(ks).cpu().numpy()
         print(f"[serve] DAC active budgets: min={ks.min()} "
               f"median={np.median(ks):.0f} max={ks.max()} "
               f"(pool={args.budget})")

@@ -1,6 +1,7 @@
-"""LM substrate (port of ``models/``): dense attention decoders with the
-reference's configs and parameter layouts.  MLA, MoE, SSM/xLSTM layers and
-sharding are not ported yet (ROADMAP A12)."""
+"""LM substrate (port of ``models/``): the decoder stack with every layer
+kind of the repo's configurations (attention, MLA, Mamba, mLSTM, sLSTM;
+dense or MoE FFNs) in the reference's configs and parameter layouts.
+Sharding (``models/sharding.py``) is not ported yet (ROADMAP A12.4)."""
 from .config import ArchConfig, LayerSpec, MambaSpec, MoESpec, XLSTMSpec
 from .convert import (params_from_reference, serve_state_from_reference,
                       serve_state_to_numpy)

@@ -1,43 +1,65 @@
 """Serving steps (port of ``serving/serve_step.py``): prefill and
-single-token decode for dense attention decoders.
+single-token decode for every architecture of the repo's configurations.
 
 Two cache regimes, selected by ``budget``:
   * budget == 0: unbounded contiguous KV buffers of ``max_len`` slots;
     slot index == token position;
-  * budget > 0: the paper's bounded slot pool; each attention layer holds
-    ``budget`` physical slots managed per sequence by DynamicAdaptiveClimb
-    (:mod:`.kv_cache`), so a decoded token attends over O(budget) slots
-    whatever the context length.
+  * budget > 0: the paper's bounded slot pool; each attention and MLA
+    layer holds ``budget`` physical slots managed per sequence by
+    DynamicAdaptiveClimb (:mod:`.kv_cache`), so a decoded token attends
+    over O(budget) slots whatever the context length.
 
-On CUDA tensors the prefill's attention is kernel B2
-(``kernels.flash_attention``) and each decode step's is kernel B3
-(``kernels.decode_attention``), whose per-slot mass is DAC's hit signal;
-``impl="plain"`` runs their plain versions instead.
+Recurrent layers (mamba, mlstm, slstm) carry O(1) state and ignore the
+budget.  An MLA layer caches ``latent [B, L, r]`` and ``krope [B, L, dr]``
+and attends in the absorbed form (``models.mla.mla_attend``, plain
+torch), whose per-slot mass is its hit signal as B3's is an attention
+layer's.
+
+On CUDA tensors the prefill's attention (and MLA's) is kernel B2
+(``kernels.flash_attention``) and each attention layer's decode is kernel
+B3 (``kernels.decode_attention``); ``impl="plain"`` runs their plain
+versions instead.
 
 The state is ``{"pos": [B] int32, "layers": [one dict per layer]}``.
 Unlike the reference (whose arrays are immutable), :func:`decode_step`
-writes each token's K/V into the layer's buffers in place and returns the
-same state with new ``pos`` and ``ctrl``: a copy of every buffer per
-token would cost as much memory traffic as the attention itself.
+writes each token's K/V (or latent) into the layer's buffers in place and
+returns the same state with new ``pos``, ``ctrl`` and recurrent states: a
+copy of every buffer per token would cost as much memory traffic as the
+attention itself.
 """
 from __future__ import annotations
 
 import torch
 
+from ..models import mla, ssm
 from ..models.config import ArchConfig
-from ..models.layers import attend_decode, attn_qkv, mlp_apply, rmsnorm
-from ..models.model import (check_supported, embed_inputs, forward,
-                            layer_spec, logits_head)
+from ..models.layers import attend_decode, attn_qkv, rmsnorm
+from ..models.model import (embed_inputs, ffn, forward, layer_spec,
+                            logits_head)
 from . import kv_cache as kvc
 
-__all__ = ["init_serve_state", "decode_step", "prefill", "bounded_fill"]
+__all__ = ["init_serve_state", "decode_step", "prefill", "bounded_fill",
+           "kv_bytes"]
+
+# the recurrent layers' state and one-token step, by kind
+RECURRENT = {"mamba": (ssm.mamba_state_init, ssm.mamba_decode_step),
+             "mlstm": (ssm.mlstm_state_init, ssm.mlstm_decode_step),
+             "slstm": (ssm.slstm_state_init, ssm.slstm_decode_step)}
+# the buffers that hold a slot's cache entry, by layer kind
+CACHE_KEYS = {"attn": ("k", "v"), "mla": ("latent", "krope")}
 
 
-def _layer_state(cfg: ArchConfig, B, max_len, budget, k0, device):
+def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device):
+    if kind in RECURRENT:
+        return RECURRENT[kind][0](cfg, B, cfg.dtype, device)
     L = budget if budget else max_len
-    shape = (B, L, cfg.n_kv_heads, cfg.head_dim)
-    st = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-          "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    kw = dict(dtype=cfg.dtype, device=device)
+    if kind == "attn":
+        shape = (B, L, cfg.n_kv_heads, cfg.head_dim)
+        st = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+    else:                                                  # mla
+        st = {"latent": torch.zeros((B, L, cfg.kv_lora_rank), **kw),
+              "krope": torch.zeros((B, L, cfg.qk_rope_head_dim), **kw)}
     if budget:
         # serving starts at the full pool: DAC shrinks when hits concentrate
         # rather than evicting from a quarter-size start, unless a fleet
@@ -52,10 +74,18 @@ def init_serve_state(cfg: ArchConfig, B: int, max_len: int, budget: int = 0,
                      k0: int | None = None, device="cuda") -> dict:
     """Fresh serve state.  budget > 0 => bounded DAC pool; ``k0`` starts
     each sequence's active budget below the full pool."""
-    check_supported(cfg)
     return {"pos": torch.zeros(B, dtype=torch.int32, device=device),
-            "layers": [_layer_state(cfg, B, max_len, budget, k0, device)
-                       for _ in range(cfg.n_layers)]}
+            "layers": [_layer_state(cfg, layer_spec(cfg, layer).kind, B,
+                                    max_len, budget, k0, device)
+                       for layer in range(cfg.n_layers)]}
+
+
+def kv_bytes(state) -> int:
+    """Bytes the state's cache buffers (K/V, latent/krope) hold, allocated
+    whether live or not."""
+    return sum(st[n].numel() * st[n].element_size()
+               for st in state["layers"] for names in CACHE_KEYS.values()
+               for n in names if n in st)
 
 
 def _top_slot(mass, valid):
@@ -65,35 +95,59 @@ def _top_slot(mass, valid):
     return torch.where(valid.any(dim=-1), top, -1).to(torch.int32)
 
 
-def _decode_attn(x, p, st, cfg, spec, pos, eps, k_min, kv_caps, impl):
-    """One attention layer's decode (bounded or unbounded).  x ``[B, 1, d]``.
-    Writes the token's K/V into ``st`` in place."""
-    B = x.shape[0]
-    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = attn_qkv(h, p["attn"], cfg, pos[:, None])   # [B, 1, H|Hkv, hd]
-    bidx = torch.arange(B, device=x.device)
+def _insert(st, names, rows, pos, window):
+    """Write one token's cache rows (``rows[i]`` ``[B, ...]`` into buffer
+    ``names[i]``) at its slot, in place: DAC's insert (a miss event) picks
+    the slot in the bounded regime, the position is the slot otherwise.
+    Returns (the new ctrl, None when unbounded; the valid slots
+    ``[B, L]``, the window applied)."""
     if "ctrl" in st:                                       # bounded (DAC)
-        ctrl, slot = kvc.insert(st["ctrl"], pos)           # miss event
-        st["k"][bidx, slot.long()] = k[:, 0]
-        st["v"][bidx, slot.long()] = v[:, 0]
+        ctrl, slot = kvc.insert(st["ctrl"], pos)
         valid = kvc.valid_slots(ctrl)
-        if spec.window:
-            valid = valid & (ctrl["slot_pos"] > (pos[:, None] - spec.window))
-        o, mass = attend_decode(q[:, 0], st["k"], st["v"], valid,
-                                softcap=cfg.attn_softcap, impl=impl)
-        ctrl = kvc.hit(ctrl, _top_slot(mass, valid))       # hit event
-        st["ctrl"] = kvc.resize(ctrl, eps=eps, k_min=k_min, cap=kv_caps)
+        slot_pos = ctrl["slot_pos"]
     else:                                                  # unbounded
-        st["k"][bidx, pos.long()] = k[:, 0]
-        st["v"][bidx, pos.long()] = v[:, 0]
-        ar = torch.arange(st["k"].shape[1], device=x.device)[None]
-        valid = ar <= pos[:, None]
-        if spec.window:
-            valid = valid & (ar > pos[:, None] - spec.window)
-        o, _ = attend_decode(q[:, 0], st["k"], st["v"], valid,
-                             softcap=cfg.attn_softcap, impl=impl)
-    att = torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
-    return x + att[:, None]
+        ctrl, slot = None, pos
+        slot_pos = torch.arange(st[names[0]].shape[1],
+                                device=pos.device)[None]
+        valid = slot_pos <= pos[:, None]
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    for name, row in zip(names, rows):
+        st[name][bidx, slot.long()] = row
+    if window:
+        valid = valid & (slot_pos > pos[:, None] - window)
+    return ctrl, valid
+
+
+def _hit(st, ctrl, mass, valid, eps, k_min, kv_caps):
+    """Bounded regime: the top slot of the mass is DAC's hit event, then
+    the resize check."""
+    if ctrl is not None:
+        ctrl = kvc.hit(ctrl, _top_slot(mass, valid))
+        st["ctrl"] = kvc.resize(ctrl, eps=eps, k_min=k_min, cap=kv_caps)
+
+
+def _decode_attn(h, p, st, cfg, spec, pos, impl, **dac):
+    """One attention layer's decode.  h ``[B, 1, d]`` (normed); writes the
+    token's K/V into ``st`` in place; returns ``[B, d]``."""
+    q, k, v = attn_qkv(h, p["attn"], cfg, pos[:, None])   # [B, 1, H|Hkv, hd]
+    ctrl, valid = _insert(st, ("k", "v"), (k[:, 0], v[:, 0]), pos,
+                          spec.window)
+    o, mass = attend_decode(q[:, 0], st["k"], st["v"], valid,
+                            softcap=cfg.attn_softcap, impl=impl)
+    _hit(st, ctrl, mass, valid, **dac)
+    return torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
+
+
+def _decode_mla(h, p, st, cfg, pos, **dac):
+    """One MLA layer's decode: the token's (latent, k_rope) written into
+    the cache, then the absorbed attention (plain torch in both impls)."""
+    latent, krope = mla.mla_latent(h, p["attn"], cfg, pos[:, None])
+    ctrl, valid = _insert(st, ("latent", "krope"),
+                          (latent[:, 0], krope[:, 0, 0]), pos, None)
+    out, mass = mla.mla_attend(h, p["attn"], cfg, st["latent"], st["krope"],
+                               valid, pos)
+    _hit(st, ctrl, mass, valid, **dac)
+    return out
 
 
 def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
@@ -101,19 +155,26 @@ def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
                 impl="kernel"):
     """One decode step.  token ``[B]`` int (or embed ``[B, d]`` for
     stub-frontend archs).  Returns ``(state, logits [B, V] f32)``; the
-    K/V buffers of ``state`` are updated in place.
+    cache buffers and recurrent states of ``state`` are updated in place.
 
     ``kv_caps`` (``[B]`` int32, optional) caps each sequence's bounded-pool
-    growth for this step, the same for every layer; ``None`` = uncapped."""
-    check_supported(cfg)
+    growth for this step, the same for every attention and MLA layer;
+    ``None`` = uncapped."""
     pos = state["pos"]
     x = embed_inputs(params, cfg, token, embed)[:, None]    # [B, 1, d]
+    dac = dict(eps=eps, k_min=k_min, kv_caps=kv_caps)
     for layer, (p, st) in enumerate(zip(params["layers"], state["layers"])):
-        x = _decode_attn(x, p, st, cfg, layer_spec(cfg, layer), pos, eps,
-                         k_min, kv_caps, impl)
-        if "mlp" in p:
-            h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-            x = x + mlp_apply(h, p["mlp"], cfg.act)
+        spec = layer_spec(cfg, layer)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        if spec.kind == "attn":
+            out = _decode_attn(h, p, st, cfg, spec, pos, impl, **dac)
+        elif spec.kind == "mla":
+            out = _decode_mla(h, p, st, cfg, pos, **dac)
+        else:
+            out, new = RECURRENT[spec.kind][1](h[:, 0], p[spec.kind], cfg,
+                                               st)
+            st.update(new)
+        x = ffn(x + out[:, None], p, cfg)
     logits = logits_head(params, cfg, x)[:, 0]
     state["pos"] = pos + 1
     return state, logits
@@ -125,12 +186,12 @@ def bounded_fill(ctrl, S: int):
     sequence and physical slot, the position of the last token written
     there (-1 where none was).
 
-    The reference replays this scan in every layer (``_bounded_fill``);
-    the insert law reads no KV data, so every layer that starts from the
-    same state follows the same trajectory, and the port runs it once.
-    The slot a token lands in may be overwritten by a later token, so each
-    slot takes its *last* writer, found with a max-reduction (no scatter
-    with duplicate indices)."""
+    The reference replays this scan in every attention and MLA layer
+    (``_bounded_fill``); the insert law reads no cache data, so every
+    layer that starts from the same state follows the same trajectory,
+    and the port runs it once.  The slot a token lands in may be
+    overwritten by a later token, so each slot takes its *last* writer,
+    found with a max-reduction (no scatter with duplicate indices)."""
     B, Bmax = ctrl["rank2slot"].shape
     dev = ctrl["rank2slot"].device
     slots = []
@@ -159,19 +220,26 @@ def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
     logits, caches = forward(params, cfg, tokens=tokens, embeds=embeds,
                              impl=impl, want_cache=True, last_only=True)
     state = init_serve_state(cfg, B, max_len, budget, k0, device=dev)
-    if budget:
-        ctrl, last = bounded_fill(state["layers"][0]["ctrl"], S)
+    pooled = [st for st in state["layers"] if "ctrl" in st]
+    if pooled:
+        ctrl, last = bounded_fill(pooled[0]["ctrl"], S)
         bidx = torch.arange(B, device=dev)[:, None]
         src = last.clamp(min=0)
-        hold = (last >= 0)[..., None, None]
-    for st in state["layers"]:
-        ca = caches.pop(0)                      # free each layer's K/V early
+        hold = last >= 0
+    for layer, st in enumerate(state["layers"]):
+        ca = caches[layer]
+        caches[layer] = None                    # free each layer's cache early
+        kind = layer_spec(cfg, layer).kind
+        if kind in RECURRENT:
+            st.update(ca)                       # the state after the prompt
+            continue
+        for name in CACHE_KEYS[kind]:
+            if budget:
+                keep = hold.reshape(hold.shape + (1,) * (ca[name].dim() - 2))
+                st[name] = torch.where(keep, ca[name][bidx, src], st[name])
+            else:
+                st[name][:, :S] = ca[name]
         if budget:
             st["ctrl"] = ctrl
-            for name in ("k", "v"):
-                st[name] = torch.where(hold, ca[name][bidx, src], st[name])
-        else:
-            st["k"][:, :S] = ca["k"]
-            st["v"][:, :S] = ca["v"]
     state["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
     return state, logits[:, -1]

@@ -1,6 +1,7 @@
-"""Port parity: the dense decoder (``repro_torch.models``) against the
-reference's ``models``: forward logits and prefill caches, parameter
-layouts and counts, and the exact carry of weights.
+"""Port parity: the decoder (``repro_torch.models``) against the
+reference's ``models`` for all ten configurations (attention, MLA, MoE,
+Mamba, mLSTM and sLSTM layers): forward logits and prefill caches,
+parameter layouts and counts, and the exact carry of weights.
 
 Logits and caches are compared in f32 within 1e-4 (the two sides sum
 matmuls and softmaxes in different orders; the largest difference seen is
@@ -29,8 +30,10 @@ from repro_torch.models import (forward, init_params,  # noqa: E402
 TOL = 1e-4
 DENSE = ["deepseek-7b", "codeqwen1.5-7b", "gemma2-27b", "qwen1.5-110b",
          "llava-next-mistral-7b", "musicgen-medium"]
-NOT_PORTED = ["deepseek-v2-236b", "mixtral-8x22b", "jamba-1.5-large-398b",
-              "xlstm-125m"]
+# MLA + MoE, MoE with a window, Mamba + attention + MoE, mLSTM + sLSTM
+MIXED = ["deepseek-v2-236b", "mixtral-8x22b", "jamba-1.5-large-398b",
+         "xlstm-125m"]
+ALL = DENSE + MIXED
 
 
 def _f32(cfg):
@@ -47,7 +50,7 @@ def _inputs(cfg, B, S, seed):
     return dict(tokens=jnp.asarray(t)), dict(tokens=torch.from_numpy(t))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_forward_equals_reference(name):
     rcfg, pcfg = _f32(REF_SMOKE[name]), _f32(SMOKE_ARCHS[name])
     rparams = ref_init(rcfg, jax.random.PRNGKey(2))
@@ -69,13 +72,15 @@ def test_forward_equals_reference(name):
     plen = len(rcfg.period)
     for layer, cache in enumerate(got_caches):
         ref_cache = want_caches[f"l{layer % plen}"]
-        for kv in ("k", "v"):
+        assert sorted(cache) == sorted(ref_cache)
+        for name in ref_cache:
             np.testing.assert_allclose(
-                cache[kv].numpy(), np.asarray(ref_cache[kv][layer // plen]),
-                atol=TOL, rtol=0, err_msg=f"layer {layer} {kv}")
+                cache[name].numpy(),
+                np.asarray(ref_cache[name][layer // plen]),
+                atol=TOL, rtol=0, err_msg=f"layer {layer} {name}")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_param_layout_and_count_equal_reference(name):
     """The port's parameters have the reference's names and shapes, layer
     by layer, and the same count at full size."""
@@ -90,7 +95,12 @@ def test_param_layout_and_count_equal_reference(name):
     assert jax.tree.structure(jax.tree.map(lambda x: 0, params)) == \
         jax.tree.structure(jax.tree.map(lambda x: 0, carried))
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(carried)):
-        assert a.shape == b.shape and a.dtype == cfg.dtype
+        assert a.shape == b.shape
+    # the dtypes are the reference's: the model's, or f32 where the
+    # reference keeps f32 in any model (router, recurrent gates, A, D)
+    for a, s in zip(jax.tree.leaves(params), jax.tree.leaves(shapes)):
+        want = torch.float32 if s.dtype == jnp.float32 else cfg.dtype
+        assert a.dtype == want
     assert param_count(cfg) == ref_param_count(REF_SMOKE[name])
     assert param_count(ARCHS[name]) == ref_param_count(REF_ARCHS[name])
     assert sum(x.numel() for x in jax.tree.leaves(params)) == param_count(cfg)
@@ -122,7 +132,39 @@ def test_init_params_is_seeded():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_layer_kinds_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        init_params(SMOKE_ARCHS[name], device="cpu")
+@pytest.mark.parametrize("name,leaves", [
+    ("deepseek-v2-236b", [("moe", "router"), ("moe", "shared", "w_up"),
+                          ("attn", "kv_norm", "scale")]),
+    ("jamba-1.5-large-398b", [("moe", "router"), ("mamba", "dt_b"),
+                              ("mamba", "A_log"), ("mamba", "D"),
+                              ("mamba", "in_proj")]),
+    ("xlstm-125m", [("mlstm", "w_i"), ("mlstm", "b_f"), ("slstm", "R"),
+                    ("slstm", "b"), ("slstm", "ffn", "w_down")]),
+])
+def test_params_from_reference_keeps_f32_leaves_in_bf16(name, leaves):
+    """In a bf16 model the reference keeps the router, the recurrent
+    layers' gates and A/D in f32: each leaf keeps its dtype and its bits
+    across the carry, in every layer."""
+    rcfg, pcfg = REF_SMOKE[name], SMOKE_ARCHS[name]
+    rparams = jax.tree.map(np.asarray, ref_init(rcfg, jax.random.PRNGKey(8)))
+    pparams = params_from_reference(rparams, pcfg, device="cpu")
+    plen = len(rcfg.period)
+    checked = set()
+    for layer, lp in enumerate(pparams["layers"]):
+        for path in leaves:
+            try:
+                got = lp
+                want = rparams["layers"][f"l{layer % plen}"]
+                for k in path:
+                    got, want = got[k], want[k]
+            except KeyError:
+                continue                  # this layer has no such leaf
+            want = want[layer // plen]
+            assert str(got.dtype).removeprefix("torch.") == want.dtype.name
+            bits = np.int32 if want.dtype == np.float32 else np.int16
+            view = torch.int32 if got.dtype == torch.float32 else torch.int16
+            np.testing.assert_array_equal(got.view(view).numpy(),
+                                          want.view(bits))
+            checked.add((path, want.dtype.name))
+    assert {p for p, _ in checked} == set(leaves)
+    assert "float32" in {d for _, d in checked}

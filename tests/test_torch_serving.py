@@ -1,7 +1,8 @@
 """Port parity: the bounded KV pool (``serving/kv_cache.py``) and the serve
 path (``prefill`` + ``decode_step``) against the reference.
 
-The DAC control state is held equal bit for bit.  Logits and K/V are held
+The DAC control state and the MoE routing are held equal bit for bit.
+Logits, caches (K/V, MLA's latent/krope) and recurrent states are held
 within 1e-4 in f32: both sides run the same arithmetic, and the largest
 difference seen is a few 1e-6 (matmul and softmax sums in different
 orders), on logits of magnitude ~1-5.  Weights and state are carried
@@ -21,6 +22,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro.serving.serve_step as ref_serve  # noqa: E402
+import repro_torch.models.moe as port_moe  # noqa: E402
 from repro.configs import SMOKE_ARCHS as REF_SMOKE  # noqa: E402
 from repro.models import init_params as ref_init  # noqa: E402
 from repro.serving import kv_cache as rk  # noqa: E402
@@ -34,8 +36,12 @@ from repro_torch.serving import kv_cache as pk  # noqa: E402
 TOL = 1e-4
 # the reference's top-2 mass margin must exceed this at every hit event for
 # "ctrl equal bit for bit" to be the claim (the two sides' masses differ by
-# ~1e-7 in f32; a closer tie could pick another slot on either side)
+# ~1e-7 in f32; a closer tie could pick another slot on either side); the
+# same for the gap between the router's k-th and (k+1)-th probability,
+# for "routing equal bit for bit"
 MARGIN = 1e-5
+MIXED = ["deepseek-v2-236b", "mixtral-8x22b", "jamba-1.5-large-398b",
+         "xlstm-125m"]
 
 
 # the reference's primitives, jitted (eager jnp dispatch would take minutes)
@@ -163,42 +169,80 @@ def _assert_state_close(pstate, rstate, pcfg, what):
     want = jax.tree.map(np.asarray, rstate)
     np.testing.assert_array_equal(got["pos"], want["pos"])
     for li, layer in want["layers"].items():
-        for name in ("k", "v"):
-            np.testing.assert_allclose(got["layers"][li][name], layer[name],
-                                       atol=TOL, rtol=0,
-                                       err_msg=f"{what} {li} {name}")
-        if "ctrl" in layer:
-            _assert_ctrl_equal(got["layers"][li]["ctrl"], layer["ctrl"],
-                               f"{what} {li}")
+        assert sorted(got["layers"][li]) == sorted(layer), f"{what} {li}"
+        for name, leaf in layer.items():
+            if name == "ctrl":
+                _assert_ctrl_equal(got["layers"][li]["ctrl"], leaf,
+                                   f"{what} {li}")
+            else:
+                np.testing.assert_allclose(got["layers"][li][name], leaf,
+                                           atol=TOL, rtol=0,
+                                           err_msg=f"{what} {li} {name}")
 
 
 @pytest.fixture
 def record_margins(monkeypatch):
-    """Wrap the reference serve step's decode attention to record, at every
-    bounded hit event, the top-2 margin of the mass over valid slots."""
+    """Wrap the reference serve step's decode attention (and MLA's) to
+    record, at every bounded hit event, the top-2 margin of the mass over
+    valid slots."""
     margins = []
-    orig = ref_serve.decode_attention
 
     def record(mass, valid):
         m = np.where(valid, mass, -np.inf)
         top2 = np.sort(m, axis=-1)[:, -2:]
         margins.extend((top2[:, 1] - top2[:, 0]).tolist())
 
-    def wrapped(q, k, v, valid, **kw):
-        o, mass = orig(q, k, v, valid, **kw)
-        jax.debug.callback(record, mass, valid)
-        return o, mass
+    def wrap(orig, valid_at):
+        def wrapped(*args, **kw):
+            o, mass = orig(*args, **kw)
+            jax.debug.callback(record, mass, args[valid_at])
+            return o, mass
+        return wrapped
 
-    monkeypatch.setattr(ref_serve, "decode_attention", wrapped)
+    monkeypatch.setattr(ref_serve, "decode_attention",
+                        wrap(ref_serve.decode_attention, 3))
+    monkeypatch.setattr(ref_serve.mla_mod, "mla_attend",
+                        wrap(ref_serve.mla_mod.mla_attend, 5))
     return margins
 
 
-@pytest.mark.parametrize("name", ["deepseek-7b", "gemma2-27b"])
+@pytest.fixture
+def record_routes(monkeypatch):
+    """Record every MoE routing decision on both sides, in call order (the
+    reference's through an ordered callback), and the reference's gap
+    between the k-th and (k+1)-th router probability."""
+    rec = {"ref": [], "port": [], "gap": []}
+    ref_route, port_route = ref_serve.moe_mod.route, port_moe.route
+
+    def record(idx, probs):
+        rec["ref"].append(np.asarray(idx))
+        top = np.sort(np.asarray(probs), axis=-1)
+        k = idx.shape[-1]
+        rec["gap"].append(float((top[..., -k] - top[..., -k - 1]).min()))
+
+    def ref_wrapped(x, w, cfg):
+        idx, gates, probs = ref_route(x, w, cfg)
+        jax.debug.callback(record, idx, probs, ordered=True)
+        return idx, gates, probs
+
+    def port_wrapped(x, w, cfg):
+        idx, gates, probs = port_route(x, w, cfg)
+        rec["port"].append(idx.numpy().copy())
+        return idx, gates, probs
+
+    monkeypatch.setattr(ref_serve.moe_mod, "route", ref_wrapped)
+    monkeypatch.setattr(port_moe, "route", port_wrapped)
+    return rec
+
+
+@pytest.mark.parametrize("name", ["deepseek-7b", "gemma2-27b"] + MIXED)
 @pytest.mark.parametrize("budget", [0, 16])
-def test_prefill_and_decode_equal_reference(name, budget, record_margins):
+def test_prefill_and_decode_equal_reference(name, budget, record_margins,
+                                            record_routes):
     """Prefill a 20-token prompt, then 28 teacher-forced decode steps, every
-    one past the bounded pool's 16 slots: logits and K/V within 1e-4,
-    positions and DAC control state bit for bit after every step."""
+    one past the bounded pool's 16 slots: logits, caches and recurrent
+    states within 1e-4, positions, DAC control state and MoE routing bit
+    for bit after every step."""
     rcfg, pcfg, rparams, pparams = _models(name)
     B, S, G = 2, 20, 28
     toks = np.random.default_rng(9).integers(0, rcfg.vocab, (B, S + G))
@@ -220,9 +264,17 @@ def test_prefill_and_decode_equal_reference(name, budget, record_margins):
                                    atol=TOL, rtol=0, err_msg=f"step {t}")
         _assert_state_close(pstate, rstate, pcfg, f"step {t}")
     jax.effects_barrier()
-    if budget:
-        assert len(record_margins) >= G * B * rcfg.n_layers
+    n_pooled = sum(s.kind in ("attn", "mla") for s in pcfg.layer_specs())
+    if budget and n_pooled:
+        assert len(record_margins) >= G * B * n_pooled
         assert min(record_margins) > MARGIN
+    n_moe = sum(bool(s.moe and pcfg.moe) for s in pcfg.layer_specs())
+    routes = record_routes
+    assert len(routes["port"]) == len(routes["ref"]) == n_moe * (1 + G)
+    for t, (a, b) in enumerate(zip(routes["port"], routes["ref"])):
+        np.testing.assert_array_equal(a, b, err_msg=f"routing call {t}")
+    if n_moe:
+        assert min(routes["gap"]) > MARGIN
 
 
 def test_decode_from_reference_state_equals_reference():
@@ -245,3 +297,44 @@ def test_decode_from_reference_state_equals_reference():
         np.testing.assert_allclose(plog.numpy(), np.asarray(rlog), atol=TOL,
                                    rtol=0)
         _assert_state_close(pstate, rstate, pcfg, f"step {t}")
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "jamba-1.5-large-398b",
+                                  "xlstm-125m"])
+def test_serve_state_carry_is_exact_in_bf16(name):
+    """A bf16 model's prefilled bounded state: the bf16 caches and conv
+    tails and the recurrent layers' f32 ``h``/``c``/``C``/``n``/``m`` keep
+    their dtypes and bits across ``serve_state_from_reference``, and
+    ``serve_state_to_numpy`` gives the same values back."""
+    rcfg, pcfg = REF_SMOKE[name], PORT_SMOKE[name]
+    rparams = ref_init(rcfg, jax.random.PRNGKey(6))
+    toks = np.random.default_rng(3).integers(0, rcfg.vocab, (2, 24))
+    rstate, _ = ref_serve.prefill(rparams, rcfg, tokens=jnp.asarray(toks),
+                                  budget=16)
+    rstate = jax.tree.map(np.asarray, rstate)
+    pstate = serve_state_from_reference(rstate, pcfg, device="cpu")
+    plen = len(rcfg.period)
+    dtypes = set()
+    for layer, st in enumerate(pstate["layers"]):
+        want = rstate["layers"][f"l{layer % plen}"]
+        assert sorted(st) == sorted(want)
+        for key, leaf in st.items():
+            if key == "ctrl":
+                continue
+            w = want[key][layer // plen]
+            assert str(leaf.dtype).removeprefix("torch.") == w.dtype.name
+            dtypes.add(w.dtype.name)
+            bits = {4: (torch.int32, np.int32), 2: (torch.int16, np.int16)}
+            tb, nb = bits[w.dtype.itemsize]
+            np.testing.assert_array_equal(leaf.view(tb).numpy(), w.view(nb),
+                                          err_msg=f"layer {layer} {key}")
+    assert "bfloat16" in dtypes
+    assert ("float32" in dtypes) == (name != "deepseek-v2-236b")
+    back = serve_state_to_numpy(pstate, pcfg)
+    for li, layer in rstate["layers"].items():
+        for key, leaf in layer.items():
+            if key == "ctrl":
+                _assert_ctrl_equal(back["layers"][li]["ctrl"], leaf, li)
+            else:
+                np.testing.assert_array_equal(
+                    back["layers"][li][key], leaf.astype(np.float32))
