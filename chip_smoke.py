@@ -133,7 +133,22 @@ Phases, one JSON line each:
    ms of the MoE, MLA and DAC control; then deepseek-v2-236b and mixtral
    at 2 layers in f32 with kernels against plain versions as phase 7
    does, MoE routing equal too unless a near-tie in the router's
-   probabilities is reported.
+   probabilities is reported;
+14. training, through ``repro_torch.train`` with the plain attention (B2
+   has no backward, as the reference's Pallas kernel has none): (a)
+   deepseek-7b at full width in bf16, 4 of its 30 layers, B = 8 x 2,048
+   tokens from the token pipeline, 6 steps through ``Trainer`` with f32
+   moments and 6 with int8 ones (seconds a step past the first, tokens/s,
+   peak device memory, the loss first to last; the loss finite and
+   falling, int8's last loss within 0.15 of f32's); (b) kill and resume
+   at full width, 2 layers, B = 2 x 512, 8 steps, a checkpoint every 4
+   (int8 moments, async saves), the run killed inside step 6 and resumed
+   from its step-4 checkpoint, its losses against the uninterrupted
+   run's within ``RESUME_RTOL``; (c) deepseek-7b's and mixtral-8x22b's
+   smoke configs in f32, 3 train steps on the card and on the CPU from
+   one init and one batch stream, losses and parameters within
+   ``TRAIN_VS_CPU_*``; (d) a grad-mode call of B2 raises, and B2's and
+   B3's launch counts do not move across the phase.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -147,6 +162,7 @@ directory without the port's sources next to this script.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -3060,6 +3076,279 @@ def phase_campaign(dev, tmp):
             a_launches + b_launches, format_report(rep_card))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+# (a) deepseek-7b at full width, its depth cut to TRAIN_LAYERS of 30 (the
+# only cut), B = TRAIN_B sequences of TRAIN_S tokens from the token
+# pipeline, TRAIN_STEPS steps with f32 moments and again with int8 ones
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 8, 2048, 6
+# Adam's first, sign-like updates move every 4,096-wide matrix of this
+# random model by a large share of its norm: at 3e-4 after the 2-step
+# warm-up its loss rose far above where it started before it fell
+TRAIN_LR = 5e-5
+# the int8 run's last loss against the f32 run's: the reference's own
+# bound (tests/test_train.py, test_adamw_int8_moments_track_f32)
+TRAIN_INT8_GAP = 0.15
+# (b) kill and resume at full width: RESUME_LAYERS deep, B = RESUME_B x
+# RESUME_S, RESUME_STEPS steps, a checkpoint every RESUME_EVERY, int8
+# moments, async saves; the run is killed inside step RESUME_KILL_AT
+RESUME_LAYERS, RESUME_B, RESUME_S = 2, 2, 512
+RESUME_STEPS, RESUME_EVERY, RESUME_KILL_AT = 8, 4, 6
+# The resumed run recomputes steps 4-7 from the step-4 snapshot of its own
+# first run, which recomputed steps 0-3 apart from the uninterrupted run.
+# A CUDA kernel that accumulates with atomics (PyTorch does not promise a
+# deterministic backward for indexing) would let the two first runs
+# differ in the last bits of a gradient, which bf16 parameters and int8
+# moments can carry into one rounding step; the losses must agree within
+# this relative tolerance.  The gap measured on an H100 was 0 (PERF.md).
+RESUME_RTOL = 2e-3
+# (c) card against CPU: smoke configs in f32, TRAIN_VS_CPU_STEPS steps on
+# B = 4 x 64 from one init and one batch stream.  The two devices sum in
+# other orders (~1e-6 relative on a gradient), which Adam's first steps at
+# eps = 1e-8 blow up for gradients near eps (see tests/test_torch_train.py,
+# STEP_OPT): at eps = 1e-3 a parameter moves by at most lr * |dg| / eps.
+TRAIN_VS_CPU = ("deepseek-7b", "mixtral-8x22b")
+TRAIN_VS_CPU_STEPS = 3
+TRAIN_VS_CPU_LOSS_RTOL = 1e-5
+TRAIN_VS_CPU_PARAM_REL = 1e-4      # of each leaf's largest magnitude
+
+
+class Killed(RuntimeError):
+    pass
+
+
+def train_run(dev, cfg, moments, B, S, steps, ckpt_dir=None, every=0,
+              kill_at=None):
+    """One ``Trainer`` run; returns (trainer, seconds)."""
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps,
+                      moment_dtype=moments)
+    tcfg = TrainConfig(steps=steps, ckpt_dir=ckpt_dir,
+                       ckpt_every=every or steps, global_batch=B, seq_len=S,
+                       seed=SEED, async_ckpt=True)
+    trainer = Trainer(cfg, opt, tcfg, device=dev)
+    if kill_at is not None:
+        step_fn, calls = trainer._step, []
+
+        def killing(*a):
+            calls.append(1)
+            if len(calls) == kill_at + 1:
+                raise Killed(f"killed inside step {kill_at}")
+            return step_fn(*a)
+        trainer._step = killing
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+    except Killed:
+        pass
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0
+
+
+def train_full_width(dev):
+    """(a): deepseek-7b, full width, ``TRAIN_LAYERS`` deep, bf16."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import param_count
+
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=TRAIN_LAYERS)
+    out = {"arch": cfg.name, "layers": TRAIN_LAYERS,
+           "layers_of_config": ARCHS["deepseek-7b"].n_layers,
+           "params": param_count(cfg), "dtype": cfg.param_dtype,
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR}
+    for moments in ("float32", "int8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, s = train_run(dev, cfg, moments, TRAIN_B, TRAIN_S,
+                               TRAIN_STEPS)
+        hist = trainer.history
+        losses = [h["loss"] for h in hist]
+        dts = [h["dt"] for h in hist[1:]]
+        step_s = sum(dts) / len(dts)
+        if len(hist) != TRAIN_STEPS or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"train {moments}: losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train {moments}: the loss did not fall: "
+                                 f"{losses}")
+        out[moments] = {"loss_first": losses[0], "loss_last": losses[-1],
+                        "losses": losses, "step_s": step_s,
+                        "first_step_s": hist[0]["dt"],
+                        "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "grad_norms": [h["grad_norm"] for h in hist],
+                        "run_s": s}
+        del trainer
+    gap = abs(out["int8"]["loss_last"] - out["float32"]["loss_last"])
+    out["int8_vs_f32_last_loss"] = gap
+    if gap > TRAIN_INT8_GAP:
+        raise AssertionError(f"int8 moments' last loss is {gap} from f32's "
+                             f"(limit {TRAIN_INT8_GAP})")
+    return out
+
+
+def train_kill_resume(dev, tmp):
+    """(b): an uninterrupted run against one killed inside step
+    ``RESUME_KILL_AT`` and resumed from its step-``RESUME_EVERY``
+    checkpoint, at full width."""
+    import dataclasses
+    import os
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=RESUME_LAYERS)
+    d_kill = os.path.join(tmp, "kill")
+    kw = dict(B=RESUME_B, S=RESUME_S, steps=RESUME_STEPS, every=RESUME_EVERY)
+    # the uninterrupted run writes no checkpoints: only its losses are read
+    full, full_s = train_run(dev, cfg, "int8", **kw)
+    killed, kill_s = train_run(dev, cfg, "int8", ckpt_dir=d_kill,
+                               kill_at=RESUME_KILL_AT, **kw)
+    kept = CheckpointManager(d_kill).steps()
+    resumed, res_s = train_run(dev, cfg, "int8", ckpt_dir=d_kill, **kw)
+    want = [h["loss"] for h in full.history]
+    got = [h["loss"] for h in resumed.history]
+    first = resumed.history[0]["step"] if got else None
+    if len(killed.history) != RESUME_KILL_AT or kept != [RESUME_EVERY] or \
+            first != RESUME_EVERY or len(got) != RESUME_STEPS - RESUME_EVERY:
+        raise AssertionError(f"kill and resume: killed run "
+                             f"{len(killed.history)} steps, checkpoints "
+                             f"{kept}, resumed from {first} for {len(got)} "
+                             f"steps")
+    gaps = [abs(g - w) / abs(w) for g, w in zip(got, want[RESUME_EVERY:])]
+    if max(gaps) > RESUME_RTOL:
+        raise AssertionError(f"resumed losses {got} against {want}: "
+                             f"relative gap {max(gaps)} > {RESUME_RTOL}")
+    ckpt = os.path.join(d_kill, f"step_{RESUME_STEPS:010d}", "state.npz")
+    return {"layers": RESUME_LAYERS, "batch": RESUME_B, "seq": RESUME_S,
+            "steps": RESUME_STEPS, "ckpt_every": RESUME_EVERY,
+            "killed_inside_step": RESUME_KILL_AT, "moments": "int8",
+            "async": True, "checkpoints_after_kill": kept,
+            "resumed_from": first, "losses": want, "resumed_losses": got,
+            "last_loss_rel_gap": gaps[-1], "max_rel_gap": max(gaps),
+            "rtol": RESUME_RTOL, "checkpoint_bytes": os.path.getsize(ckpt),
+            "full_s": full_s, "killed_s": kill_s, "resumed_s": res_s}
+
+
+def train_vs_cpu(dev):
+    """(c): the same train steps on the card and on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import (init_params, params_from_reference,
+                                    params_to_reference, stacked_view)
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+
+    out = []
+    for name in TRAIN_VS_CPU:
+        cfg = dataclasses.replace(SMOKE_ARCHS[name], param_dtype="float32")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1,
+                          total_steps=TRAIN_VS_CPU_STEPS, eps=1e-3)
+        cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        # (device, parameters, optimizer state): the card's, then the CPU's
+        sides = [[d, p, adamw.init(stacked_view(p, cfg), opt)] for d, p in (
+            (dev, params_from_reference(params_to_reference(cpu, cfg), cfg,
+                                        dev)), ("cpu", cpu))]
+        step = make_train_step(cfg, opt)
+        pipe = TokenPipeline(cfg.vocab, 4, 64, seed=SEED)
+        loss_gap = 0.0
+        for t in range(TRAIN_VS_CPU_STEPS):
+            batch = pipe.batch(t)
+            loss = []
+            for side in sides:
+                d = side[0]
+                side[1], side[2], m = step(side[1], side[2], {
+                    k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+                loss.append(float(m["loss"]))
+            gap = abs(loss[0] - loss[1]) / abs(loss[1])
+            loss_gap = max(loss_gap, gap)
+            if gap > TRAIN_VS_CPU_LOSS_RTOL:
+                raise AssertionError(f"{name} step {t}: loss card, CPU "
+                                     f"{loss}")
+        got, want = (params_to_reference(side[1], cfg) for side in sides)
+        worst = 0.0
+        for path, w in flat_leaves(want):
+            g = flat_get(got, path).cpu()
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+            worst = max(worst, rel)
+            if rel > TRAIN_VS_CPU_PARAM_REL:
+                raise AssertionError(f"{name} {path}: card and CPU "
+                                     f"parameters differ by {rel} of the "
+                                     f"leaf's largest")
+        out.append({"arch": name, "dtype": "float32", "batch": 4, "seq": 64,
+                    "steps": TRAIN_VS_CPU_STEPS, "max_loss_rel_gap": loss_gap,
+                    "max_param_rel_gap": worst})
+    return out
+
+
+def flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def flat_get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def train_guard(dev):
+    """(d): a grad-mode call of B2 raises on the card (no backward)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.randn(1, 64, 4, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 64, 4, 64, device=dev)
+    try:
+        fa.flash_attention(q, k, k)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        return str(e)
+    raise AssertionError("B2 ran under autograd with an input that "
+                         "requires grad")
+
+
+def phase_train(dev):
+    """Phase 14: training through ``repro_torch.train`` on the card (plain
+    attention: B2 has no backward, as the reference's Pallas kernel has
+    none), B2's and B3's launch counts unchanged across the phase."""
+    import tempfile
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    launches = (fa.LAUNCHES, da.LAUNCHES)
+    res = {"phase": "train", "nvidia_smi": nvidia_smi_line()}
+    res["full_width"] = train_full_width(dev)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        res["kill_resume"] = train_kill_resume(dev, tmp)
+    res["card_vs_cpu"] = train_vs_cpu(dev)
+    res["b2_guard"] = train_guard(dev)
+    if (fa.LAUNCHES, da.LAUNCHES) != launches:
+        raise AssertionError(f"training launched B2/B3: "
+                             f"{launches} -> {(fa.LAUNCHES, da.LAUNCHES)}")
+    res["b2_b3_launches_in_phase"] = 0
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3124,6 +3413,7 @@ def main() -> int:
     print(report_text, flush=True)
     res, arch_launches = phase_archs(dev)
     emit(res)
+    emit(phase_train(dev))
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{

@@ -33,5 +33,9 @@ Ported so far:
   cache or the DAC-bounded slot pool, attention on the hand-written
   kernels ``kernels/csrc/flash_attention.cu`` (prefill) and
   ``kernels/csrc/decode_attention.cu`` (decode, with the per-slot mass
-  that is DAC's hit signal).
+  that is DAC's hit signal);
+* training (``train``, ``optim``, ``checkpoint``, ``data.tokens``,
+  ``launch.train``): the train step, AdamW with f32 or int8 moments,
+  checkpoints in the reference's format and the trainer, through the
+  plain attention (the flash-attention kernel has no backward).
 """

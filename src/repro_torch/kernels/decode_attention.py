@@ -24,6 +24,10 @@ a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts calls that launched the kernel (one call launches the
 split kernel and the combine after it): :func:`decode_attention` adds one
 where it launches, and nowhere else.
+
+The kernel has no backward, so :func:`decode_attention` raises, on every
+device, when autograd is recording and an input requires grad
+(``flash_attention.no_grad_guard``).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import NEG_INF, _softcap
+from .flash_attention import NEG_INF, _softcap, no_grad_guard
 
 __all__ = ["decode_attention", "decode_attention_plain", "chunk_len",
            "blocks_per_call", "LAUNCHES"]
@@ -114,6 +118,7 @@ def decode_attention(q, k_cache, v_cache, valid, *, softcap=0.0,
     """One-token attention over a KV slot table: q ``[B, H, D]``, k/v
     ``[B, S, Hkv, D|Dv]`` (bf16 or f32; D, Dv <= 256), valid ``[B, S]``
     bool.  Returns ``(o [B, H, Dv], mass [B, S] f32)``."""
+    no_grad_guard("B3 (decode_attention)", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid,
                                       softcap=softcap, scale=scale)

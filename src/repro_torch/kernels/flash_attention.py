@@ -19,6 +19,13 @@ tensors; on a CUDA tensor it launches the kernel or raises.
 
 ``LAUNCHES`` counts launches of the kernel: :func:`flash_attention` adds
 one where it launches, and nowhere else.
+
+The kernel has no backward: its output, written through ``ctypes``,
+carries no ``grad_fn``, so autograd would train with zero attention
+gradients.  :func:`flash_attention` therefore raises, on every device,
+when autograd is recording and an input requires grad; training runs the
+plain version (``impl="plain"``), as the reference trains through its jnp
+attention.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "attention_dense", "NEG_INF", "LAUNCHES"]
+__all__ = ["flash_attention", "attention_dense", "NEG_INF", "LAUNCHES",
+           "no_grad_guard"]
 
 NEG_INF = -1e30
 LAUNCHES = 0
@@ -85,6 +93,15 @@ def attention_dense(q, k, v, *, causal=True, window=None, softcap=0.0,
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+def no_grad_guard(name, *xs):
+    """Raise if autograd is recording and one of ``xs`` requires grad:
+    kernel ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"kernel {name} has no backward; under autograd use the plain "
+            f"version (impl='plain'), or call it under torch.no_grad()")
+
+
 def _check(q, k, v):
     B, Sq, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4 or k.shape[0] != B or \
@@ -110,6 +127,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
     f32; D, Dv <= 256).  ``window`` keeps keys ``kpos > qpos - window``;
     ``softcap`` > 0 caps scores with ``tanh``."""
     global LAUNCHES
+    no_grad_guard("B2 (flash_attention)", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return attention_dense(q, k, v, **kw)

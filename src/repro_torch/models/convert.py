@@ -18,13 +18,16 @@ import torch
 
 from .config import ArchConfig
 
-__all__ = ["to_torch", "params_from_reference", "serve_state_from_reference",
+__all__ = ["to_torch", "params_from_reference", "params_to_reference",
+           "stacked_view", "serve_state_from_reference",
            "serve_state_to_numpy"]
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
-    """One numpy array (or array-like) as a tensor with the same values and
-    dtype; bf16 by its bits."""
+    """One numpy array (or array-like, or tensor) as a new tensor on
+    ``device`` with the same values and dtype; bf16 by its bits."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.int16)
@@ -46,13 +49,17 @@ def _unstack(tree, cfg: ArchConfig, device):
     for layer in range(cfg.n_layers):
         p = layer // plen
         layers.append(_tree(tree[f"l{layer % plen}"],
-                            lambda a, p=p: to_torch(np.asarray(a)[p], device)))
+                            lambda a, p=p: to_torch(_row(a, p), device)))
     return layers
 
 
+def _row(a, p):
+    return a[p] if isinstance(a, torch.Tensor) else np.asarray(a)[p]
+
+
 def params_from_reference(tree, cfg: ArchConfig, device="cuda") -> dict:
-    """The reference's ``init_params`` pytree (numpy leaves) as the port's
-    parameters."""
+    """The reference's ``init_params`` pytree (numpy leaves, or tensors as
+    :func:`params_to_reference` gives them) as the port's parameters."""
     out = {"embed": to_torch(tree["embed"], device),
            "layers": _unstack(tree["layers"], cfg, device),
            "final_norm": _tree(tree["final_norm"],
@@ -91,3 +98,34 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return np.stack([_np(x) for x in trees])
+
+
+def stacked_view(tree, cfg: ArchConfig) -> dict:
+    """The port's parameters (or a tree of their gradients) in the
+    reference's layout without a copy: each ``layers/l{i}/...`` leaf is the
+    list of slot ``i``'s per-layer tensors, in period order (the rows of
+    the reference's stacked leaf)."""
+    plen, layers = len(cfg.period), tree["layers"]
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["layers"] = {f"l{i}": _slices(layers[i::plen])
+                     for i in range(min(plen, len(layers)))}
+    return out
+
+
+def _slices(trees):
+    if isinstance(trees[0], dict):
+        return {k: _slices([t[k] for t in trees]) for k in trees[0]}
+    return list(trees)
+
+
+def params_to_reference(tree, cfg: ArchConfig) -> dict:
+    """The port's parameters in the reference's period-stacked layout, as
+    new tensors on their device (``torch.stack`` of :func:`stacked_view`'s
+    slices), dtypes kept."""
+    def stack(x):
+        if isinstance(x, dict):
+            return {k: stack(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return torch.stack([t.detach() for t in x])
+        return x.detach().clone()
+    return stack(stacked_view(tree, cfg))

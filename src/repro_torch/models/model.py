@@ -14,6 +14,7 @@ periods or not.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -23,7 +24,8 @@ from . import mla, moe, ssm
 from .config import ArchConfig, LayerSpec
 from .layers import attn_apply, mlp_apply, rmsnorm
 
-__all__ = ["init_params", "forward", "param_count", "layer_spec", "ffn"]
+__all__ = ["init_params", "forward", "lm_loss", "param_count", "layer_spec",
+           "ffn", "REMAT_POLICIES"]
 
 
 class _Leaf(NamedTuple):
@@ -293,25 +295,20 @@ def ffn(x, p, cfg: ArchConfig):
 _RECURRENT_APPLY = {"mamba": ssm.mamba_apply, "mlstm": ssm.mlstm_apply,
                     "slstm": ssm.slstm_apply}
 
+# the matmuls that remat "dots" saves; "dots_no_batch" saves those without
+# a batch dim (``mm`` / ``addmm``: einsums whose batch dims fold into rows)
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = {"none": None, "full": (), "dots": _MM + _BMM,
+                  "dots_no_batch": _MM}
 
-def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
-            impl="kernel", want_cache=False, last_only=False):
-    """Run the decoder.
 
-    tokens ``[B, S]`` int (or embeds ``[B, S, d]`` for stub-frontend
-    archs).  Returns logits ``[B, S, V]`` f32 and, with ``want_cache``, the
-    list of per-layer caches: ``{"k", "v"}`` (``[B, S, Hkv, hd]``) of an
-    attention layer, ``{"latent", "krope"}`` of an MLA layer, a recurrent
-    layer's state after the prompt.  ``last_only`` computes logits for the
-    final position only.  ``impl`` picks kernel B2 (``"kernel"``) or its
-    plain version (``"plain"``) for attention and MLA."""
-    x = embed_inputs(params, cfg, tokens, embeds)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+def _period(x, layers, first, cfg, positions, impl, want_cache):
+    """The layers ``first, first + 1, ...`` of the stack (one period): each
+    mixer with its residual, then the FFN's.  Returns ``(x, caches)``."""
     caches = []
-    for layer, p in enumerate(params["layers"]):
-        spec = layer_spec(cfg, layer)
+    for i, p in enumerate(layers):
+        spec = layer_spec(cfg, first + i)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         if spec.kind == "attn":
             out = attn_apply(h, p["attn"], cfg, spec, positions, impl=impl,
@@ -326,7 +323,88 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
             out, cache = out
             caches.append(cache)
         x = ffn(x + out, p, cfg)
+    return x, caches
+
+
+def _remat(fn, remat):
+    """``fn`` under activation checkpointing (the reference's
+    ``jax.checkpoint`` with ``REMAT_POLICIES[remat]``): "full" saves
+    nothing and recomputes the period in the backward pass; "dots" and
+    "dots_no_batch" save the outputs of their matmuls."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {sorted(REMAT_POLICIES)}, "
+                         f"got {remat!r}")
+    saved = REMAT_POLICIES[remat]
+    if saved is None:
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    kw = {}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
+            impl="kernel", remat="none", want_cache=False, last_only=False):
+    """Run the decoder.
+
+    tokens ``[B, S]`` int (or embeds ``[B, S, d]`` for stub-frontend
+    archs).  Returns logits ``[B, S, V]`` f32 and, with ``want_cache``, the
+    list of per-layer caches: ``{"k", "v"}`` (``[B, S, Hkv, hd]``) of an
+    attention layer, ``{"latent", "krope"}`` of an MLA layer, a recurrent
+    layer's state after the prompt.  ``last_only`` computes logits for the
+    final position only.  ``impl`` picks kernel B2 (``"kernel"``) or its
+    plain version (``"plain"``) for attention and MLA; B2 has no backward,
+    so a forward that autograd records takes ``"plain"``.  ``remat``
+    checkpoints each period's activations for the backward pass (one of
+    ``REMAT_POLICIES``; the default ``"none"`` keeps them)."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    run = _remat(functools.partial(_period, cfg=cfg, positions=positions,
+                                   impl=impl, want_cache=want_cache), remat)
+    layers, plen, caches = params["layers"], len(cfg.period), []
+    for first in range(0, len(layers), plen):
+        x, period_caches = run(x, layers[first:first + plen], first)
+        caches += period_caches
     if last_only:
         x = x[:, -1:]
     logits = logits_head(params, cfg, x)
     return (logits, caches) if want_cache else logits
+
+
+def lm_loss(params, cfg: ArchConfig, batch, *, impl="plain", remat="full"):
+    """Next-token cross-entropy (port of the reference's ``lm_loss``).
+
+    batch: ``{"tokens" | "embeds", "labels", "mask"?}``.  The masked mean of
+    the labels' log-probabilities, plus, for an MoE model, 0.01 times the
+    mean of :func:`moe.aux_load_balance_loss` over the first period's MoE
+    routers, taken on the raw embedding as the reference does.  ``impl``
+    defaults to the plain attention, the reference's ``"jnp"``: kernel B2
+    has no backward."""
+    logits = forward(params, cfg, tokens=batch.get("tokens"),
+                     embeds=batch.get("embeds"), impl=impl, remat=remat)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None])[..., 0] - lse
+    mask = batch.get("mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.moe is not None:
+        x = embed_inputs(params, cfg, batch.get("tokens"),
+                         batch.get("embeds"))
+        aux = [moe.aux_load_balance_loss(x, params["layers"][i]["moe"]
+                                         ["router"], cfg)
+               for i, spec in enumerate(cfg.period)
+               if spec.moe and i < len(params["layers"])
+               and "moe" in params["layers"][i]]
+        if aux:
+            loss = loss + 0.01 * sum(aux) / len(aux)
+    return loss

@@ -10,8 +10,8 @@ residual stream carries them unchanged.  DeepSeek-style shared experts are
 a dense gated MLP of width ``n_shared * d_ff_expert``.
 
 The router's weight is float32 even in a bf16 model, and the router runs
-in f32.  The reference's ``aux_load_balance_loss`` is training (ROADMAP
-A12.5) and has no counterpart here yet.
+in f32.  :func:`aux_load_balance_loss` is training's Switch-style
+load-balance term.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from .layers import mlp_apply
 
-__all__ = ["capacity", "route", "dispatch", "moe_apply"]
+__all__ = ["capacity", "route", "dispatch", "moe_apply",
+           "aux_load_balance_loss"]
 
 
 def capacity(group_tokens: int, cfg) -> int:
@@ -100,3 +101,13 @@ def moe_apply(x, p, cfg):
     if m.n_shared:
         out = out + mlp_apply(x, p["shared"], cfg.act)
     return out
+
+
+def aux_load_balance_loss(x, router_w, cfg):
+    """Switch-style load-balance auxiliary loss, ``E * sum_e f_e * P_e``:
+    f_e the share of tokens whose first choice is expert e, P_e the mean
+    router probability of e.  Its gradient flows through P only."""
+    m = cfg.moe
+    idx, _, probs = route(x, router_w, cfg)
+    frac = F.one_hot(idx[..., 0], m.n_experts).float().mean(dim=(0, 1))
+    return (frac * probs.mean(dim=(0, 1))).sum() * m.n_experts

@@ -46,6 +46,37 @@ def test_port_modules_import_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 12
+    # the training slice's modules are in the walk
+    assert {"repro_torch.data.tokens", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.manager", "repro_torch.train",
+            "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(MODULES)
+
+
+@pytest.mark.parametrize("entry", ["repro_torch.launch.train",
+                                   "repro_torch.launch.serve"])
+def test_launch_entry_points_import_without_jax_or_reference(entry):
+    """``python -m`` of each launch entry point (its ``--help``) loads
+    neither jax nor the reference package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{entry!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({entry!r}, run_name='__main__',\n"
+        "                     alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage: " in out.stdout
 
 
 @pytest.mark.parametrize("entry", ["repro_torch.campaign",
@@ -254,6 +285,27 @@ def test_ingest_writers_equal_reference(tmp_path):
             getattr(mod, fn)(str(tmp_path / side / name), *args)
         assert (tmp_path / "port" / name).read_bytes() == \
             (tmp_path / "ref" / name).read_bytes(), fn
+
+
+@pytest.mark.parametrize("seed", (0, 5))
+def test_token_pipeline_copy_equals_reference(seed):
+    """The port's ``data/tokens.py`` gives the reference's batches bit for
+    bit: tokens, labels and stub-frontend embeddings, for several steps
+    and host shardings."""
+    from repro.data.tokens import TokenPipeline as RefPipeline
+    from repro_torch.data.tokens import TokenPipeline
+    for vocab, B, S, embed_dim in ((256, 8, 16, 0), (1000, 4, 33, 24)):
+        ref = RefPipeline(vocab, B, S, seed=seed, embed_dim=embed_dim)
+        port = TokenPipeline(vocab, B, S, seed=seed, embed_dim=embed_dim)
+        for step in (0, 3, 17):
+            for n_hosts in (1, 2, 4):
+                for host in range(n_hosts):
+                    want = ref.batch(step, host_id=host, n_hosts=n_hosts)
+                    got = port.batch(step, host_id=host, n_hosts=n_hosts)
+                    assert sorted(got) == sorted(want)
+                    for k in want:
+                        assert got[k].dtype == want[k].dtype
+                        np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_oracle_copy_equals_reference():
