@@ -96,7 +96,7 @@ Phases, one JSON line each:
    pool / churn x 3 seeds, T cut to 8,000 from 16,000) through ``run_fleet_sweep`` and,
    of ``benchmarks/robustness.py``'s grid (N = 4,096), lru, dac,
    admit(lru) and admit(dac) x 4 scenarios x {S, L} x 2 seeds (T cut to
-   10,000 from 40,000) through ``run_sweep``, on the card: DAC's budgeted plan (and
+   5,000 from 40,000) through ``run_sweep``, on the card: DAC's budgeted plan (and
    the rank bases under admission) as one B1 launch a step inside the CUDA
    graph loop, launches counted against their formula (a launch inside a
    graph counts once, at capture), every record equal to the same runner
@@ -109,7 +109,7 @@ Phases, one JSON line each:
    dataset family, two traces of 500,000 requests each, sizes under
    256 B; uncompressed oracleGeneral files and one gzipped CSV with
    costs) and one planted bad file, through ``repro_torch.campaign``:
-   campaign A (fifo, lru, ac, dac x {S, L}, T cut to 10,000) inline on
+   campaign A (fifo, lru, ac, dac x {S, L}, T cut to 5,000) inline on
    the card and on the CPU in worker processes, every record and the
    report equal; campaign B (climb, ac, dac x {S, L}, whole traces, one
    B1 launch a 2^18-request chunk) in two spawned workers on the card,
@@ -148,7 +148,28 @@ Phases, one JSON line each:
    smoke configs in f32, 3 train steps on the card and on the CPU from
    one init and one batch stream, losses and parameters within
    ``TRAIN_VS_CPU_*``; (d) a grad-mode call of B2 raises, and B2's and
-   B3's launch counts do not move across the phase.
+   B3's launch counts do not move across the phase;
+15. multi-GPU, in worlds of spawned ranks (``launch.mesh.launch_world``)
+   after the build: (a) one NCCL rank: ``Engine(mesh=)`` for dac, ac and
+   climb on 16 seeds x T = 200,000 and fifo at ``SLOT_T``, and the
+   reference test's sharded fleet at n = 1, each equal bit for bit to
+   the unsharded run (at n = 1 every re-deal gives the one shard the
+   whole budget back); the replays timed after one run of each side,
+   unsharded then sharded; beside (a), (b)'s fleets in a 4-rank gloo
+   world on the CPU (its own seconds reported); (b) ``MG_WORLD`` = 4
+   gloo ranks sharing the card (started while (a) runs, measuring after
+   (a) and the CPU world): the reference test's fleet and phase 11's
+   "pool" at ``FLEET_T``, sharded over 4 shards, every rank's result
+   equal bit for bit to the CPU world's, B1's launches
+   against the graph loop's count with the re-deals cutting its chunks;
+   ``Engine(mesh=)`` at 64 lanes and a ``run_sweep(mesh=)`` grid equal
+   to the unsharded runs; deepseek-7b at full width on a (data 2, model
+   2) mesh, 4 layers in bf16 (B = 8 x 512, 16 steps, both regimes, pool
+   512; B2 and B3 on each rank's heads, counted), then 2 layers in f32
+   with the kernels against the unsharded path and against the sharded
+   plain versions (logits within 1e-4, DAC's control equal unless a
+   near-tie is reported); µs a fleet step sharded and unsharded, ms a
+   re-deal, prefill s and decode ms a step.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -161,6 +182,7 @@ directory without the port's sources next to this script.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -1873,10 +1895,12 @@ SLOT_T = 2_000
 # bound (0.2-4.2 ms a step, PERF.md §5); the graph replays those too
 SLOT_EAGER_T = 500
 SLOT_SEEDS = 3
-# Table III at T = 10,000, a cut from the reference's 60,000: at 20,000 the
+# Table III at T = 5,000, a cut from the reference's 60,000: at 20,000 the
 # phase took 299 s of the smoke's 998 s, and a slower host ran the smoke
-# past its 1,200 (PERF.md §4 records the choice and the measurement)
-TABLE_T = 10_000
+# past its 1,200; at 10,000 it took 156 s of a smoke of 841 s once phase
+# 15 had its CPU world to itself (PERF.md §4 records the choices and the
+# measurements)
+TABLE_T = 5_000
 TABLE_SEEDS = (0, 1, 2)
 # benchmarks/mrr_table.py's row order
 TABLE_POLICIES = (
@@ -2226,8 +2250,9 @@ TIER_T = 10_000
 # committed run (experiments/bench/BENCH_fleet.json, T = 16,000)
 FLEET_T = 8_000
 # benchmarks/robustness.py's grid (N = 4,096) for the admission policies
-# and their bases, at T = 10,000 (its own T is 40,000)
-ADMIT_T = 10_000
+# and their bases, at T = 5,000 (its own T is 40,000; 10,000 until phase
+# 15 came, PERF.md §4)
+ADMIT_T = 5_000
 MULTI_SEEDS = (0, 1, 2)
 ADMIT_SEEDS = (0, 1)
 MULTI_EAGER_T = 1_000
@@ -2657,12 +2682,13 @@ CAMPAIGN_TRACE_SEEDS = (0, 1)
 CAMPAIGN_CSV = ("metakv", 0)
 # the planted bad trace: 10 bytes, not a whole 24-byte oracleGeneral record
 CAMPAIGN_PLANTED = "bad.oracleGeneral.bin"
-# campaign A: all four policies at T = 10,000, a cut (FIFO and LRU step
+# campaign A: all four policies at T = 5,000, a cut (FIFO and LRU step
 # through the graph loop at 31-43 us a request, so a whole-trace slot cell
-# would take some 35 s; at 40,000 the phase took 274 s, and at 20,000 the
-# smoke ended at 990 s of its 1,200; PERF.md §4)
+# would take some 35 s; at 40,000 the phase took 274 s, at 20,000 the
+# smoke ended at 990 s of its 1,200, and at 10,000 a slow host ran the
+# smoke to 953 s; PERF.md §4)
 CAMPAIGN_A_POLICIES = ("fifo", "lru", "ac", "dac")
-CAMPAIGN_A_T = 10_000
+CAMPAIGN_A_T = 5_000
 # campaign B: the rank policies on the whole trace, nothing cut
 CAMPAIGN_B_POLICIES = ("climb", "ac", "dac")
 # campaign B's inline crash and resume runs over two datasets' 24 cells,
@@ -3349,6 +3375,593 @@ def phase_train(dev):
     return res
 
 
+# -- phase 15: multi-GPU ----------------------------------------------------
+
+MG_WORLD = 4                 # gloo ranks that share the card in (b)
+MG_TIMEOUT = 420             # seconds a world may take
+MG_FAMILY = "alibaba"
+MG_SEEDS, MG_T = 16, 200_000          # (a): the main path's lanes and T
+MG_LANES, MG_LANES_T = 64, 50_000     # (b): Engine(mesh=) over 4 ranks
+MG_SLOT = "fifo"                      # the slot policy, at SLOT_T
+# the reference test's fleet (tests/test_fleet.py::
+# test_sharded_fleet_conserves_and_rebalances) and phase 11's "pool" at
+# FLEET_T, dac+auction, at the reference's default rebalance
+MG_FLEET_TRACE = dict(N=128, T=2500, n_lanes=8, rate=0.02, mean_session=500,
+                      lo=8, seed=0)
+MG_FLEET_REBALANCE = (200, 256)
+MG_SERVE_LAYERS, MG_SERVE_B, MG_SERVE_S = 4, 8, 512
+MG_SERVE_STEPS, MG_SERVE_BUDGET = 16, 512
+MG_F32_LAYERS, MG_F32_S, MG_F32_STEPS = 2, 256, 8
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _arrays(tree, prefix=""):
+    """The tensors of a result (nested tuples and dicts) as numpy, by
+    path."""
+    import torch
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = zip(getattr(tree, "_fields", range(len(tree))), tree)
+    else:
+        x = tree.detach().cpu()
+        return {prefix: x.float().numpy() if x.dtype == torch.bfloat16
+                else x.numpy()}
+    out = {}
+    for k, v in items:
+        out.update(_arrays(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _digest(arrays):
+    """A SHA-256 of named arrays' bytes (ranks that must hold the same
+    result compare these)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(arrays[k].tobytes())
+    return h.hexdigest()
+
+
+def _equal_arrays(a, b, what):
+    import numpy as np
+    if sorted(a) != sorted(b):
+        raise Mismatch(f"{what}: fields {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+            raise Mismatch(f"{what}: {k} differs")
+
+
+def mg_fleet_cases(dev):
+    """(name, tier, [T, N] requests, rebalance) of the sharded fleets."""
+    from repro_torch.bench.runner import materialize
+    from repro_torch.core import Request
+    from repro_torch.data.traces import fleet_trace
+    from repro_torch.fleet import FleetTier
+    sc = fleet_sweep().scenarios[0]
+    pool = materialize(sc, (0,), dev)
+    return [("reference_test",
+             FleetTier("dac(k_min=4)", n_lanes=8, budget=96,
+                       arbiter="auction"),
+             Request.of(fleet_trace(**MG_FLEET_TRACE), device=dev),
+             MG_FLEET_REBALANCE[0]),
+            ("pool", FleetTier(TIER_DAC, n_lanes=sc.n_lanes,
+                               budget=sc.budgets()[0], arbiter="auction",
+                               k0=sc.k0, util_decay=sc.util_decay),
+             Request(*(x[0] for x in pool)), MG_FLEET_REBALANCE[1])]
+
+
+def mg_fleets(dev, mesh, names=None):
+    """The sharded fleets on this rank (those of ``names``, default all):
+    each whole-fleet result (numpy), its seconds, B1 launches and its
+    re-deals' ms (the all-gather and the share, between graph chunks)."""
+    from repro_torch.fleet import replay_fleet
+    from repro_torch.fleet import fleet as fleet_mod
+    from repro_torch.kernels import policy_step as ps
+    redeal_ms, redeal = [], fleet_mod._redeal
+
+    def timed(tier, mesh_, axis):
+        at_cut = redeal(tier, mesh_, axis)
+
+        def at(carry, t):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = at_cut(carry, t)
+            _sync(dev)
+            redeal_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return at
+
+    out = {}
+    fleet_mod._redeal = timed
+    try:
+        for name, tier, reqs, rebalance in mg_fleet_cases(dev):
+            if names is not None and name not in names:
+                continue
+            del redeal_ms[:]
+            ps.LAUNCHES = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = replay_fleet(tier, reqs, observe=True, mesh=mesh,
+                               rebalance=rebalance, device=dev)
+            _sync(dev)
+            s = time.perf_counter() - t0
+            out[name] = {"arrays": _arrays(res), "s": s,
+                         "T": reqs.key.shape[0], "b1_launches": ps.LAUNCHES,
+                         "redeals": len(redeal_ms),
+                         "redeal_ms": sorted(redeal_ms)}
+    finally:
+        fleet_mod._redeal = redeal
+    return out
+
+
+def mg_fleet_launches(T, rebalance, chunk):
+    """B1 launches of a sharded fleet replay on the card: the graph loop
+    captures once (one warm-up step, ``chunk`` captured, counted once)
+    and each stretch between re-deals runs its ``len % chunk`` tail
+    eagerly."""
+    from repro_torch.core.simulator import _segments
+    segments = _segments(T, range(0, T, rebalance))
+    tails = sum((hi - lo) % chunk for lo, hi in segments)
+    full = any(hi - lo >= chunk for lo, hi in segments)
+    return tails + (1 + chunk if full else 0)
+
+
+def mg_world_a(dev):
+    """(a) One rank (NCCL on the card): ``Engine(mesh=)`` for dac, ac and
+    climb on the main path's 16 seeds x T and for one slot policy at
+    SLOT_T, and the reference test's sharded fleet at n = 1, each against
+    the unsharded run on the same device.  The replays' seconds are a
+    second run of each side, unsharded first, after the compared runs
+    (sharded first), so that neither side's time holds a first call's
+    set-up."""
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.data.traces import family_footprint, k_for
+    from repro_torch.fleet import replay_fleet
+    from repro_torch.kernels import policy_step as ps
+    from repro_torch.launch import mesh as M
+    mesh = M.make_test_mesh(1, 1)
+    keys, sizes, costs = replay_inputs(MG_SEEDS, MG_T, dev, MG_FAMILY)
+    K = k_for(family_footprint(MG_FAMILY), "L")
+    out = {"backend": torch.distributed.get_backend(), "replay": {},
+           "b1_launches": 0}
+    for spec in ("dac", "ac", "climb", MG_SLOT):
+        T = MG_T if spec != MG_SLOT else SLOT_T
+        req = (keys[:, :T], sizes[:, :T], costs[:, :T])
+        kw = dict(sizes=req[1], costs=req[2], **main_mode(spec))
+        sharded, whole = Engine(device=dev, mesh=mesh), Engine(device=dev)
+        ps.LAUNCHES = 0
+        got = sharded.replay(spec, req[0], K, **kw)
+        launches = ps.LAUNCHES
+        out["b1_launches"] += launches
+        want = whole.replay(spec, req[0], K, **kw)
+        _equal_arrays(_arrays(got), _arrays(want), f"(a) {spec}")
+        secs = {}
+        for side, eng in (("unsharded_s", whole), ("s", sharded)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            eng.replay(spec, req[0], K, **kw)
+            _sync(dev)
+            secs[side] = time.perf_counter() - t0
+        out["replay"][spec] = {"T": T, "lanes": MG_SEEDS, **secs,
+                               "launches": launches}
+    fleets = mg_fleets(dev, mesh, ("reference_test",))
+    for name, tier, reqs, rebalance in mg_fleet_cases(dev)[:1]:
+        want = _arrays(replay_fleet(tier, reqs, observe=True, device=dev))
+        _equal_arrays(fleets[name].pop("arrays"), want, f"(a) fleet {name}")
+        out["b1_launches"] += fleets[name]["b1_launches"]
+    out["fleet"] = fleets
+    return out
+
+
+def mg_world_cpu():
+    """(b)'s fleets on the CPU: the same world size, the plain versions.
+    One thread a rank (these small fleets run no faster on more: 19.9 s
+    with one or two a rank on an 8-core host), leaving the host's other
+    cores to (a)."""
+    import torch
+    from repro_torch.launch import mesh as M
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = M.make_test_mesh(MG_WORLD, 1)
+    out = {k: v["arrays"] for k, v in mg_fleets("cpu", mesh).items()}
+    return out, time.perf_counter() - t0
+
+
+def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
+                 margins=None):
+    """Prefill ``toks[:, :S]`` and ``steps`` teacher-forced decode steps:
+    logits, the pooled layers' control state after each step (under a
+    mesh its rows gathered over ``data``), prefill seconds and decode ms a
+    step (host clock, each ending in a synchronise).  ``margins`` gets
+    each step's least top-2 mass margin (under a mesh, the least over the
+    ``data`` ranks)."""
+    import torch
+    from repro_torch.launch import mesh as M
+    from repro_torch.serving import decode_step, prefill
+    dev = toks.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, last = prefill(params, cfg, tokens=toks[:, :S], budget=budget,
+                          max_len=S + steps, impl=impl, sctx=sctx)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    logs, ctrls = [last], []
+    t0 = time.perf_counter()
+    for t in range(S, S + steps):
+        if margins is not None:
+            margins.append([])
+        state, lg = decode_step(params, cfg, state, token=toks[:, t],
+                                impl=impl, sctx=sctx)
+        logs.append(lg)
+        if budget:
+            ctrls.append([{k: x.clone() if sctx is None else
+                           M.cat(x, sctx.mesh, ("data",))
+                           for k, x in st["ctrl"].items()}
+                          for st in state["layers"]])
+        if margins is not None and sctx is not None:
+            least = torch.tensor([min(margins[-1], default=float("inf"))])
+            margins[-1] = [float(torch.cat(M.gather(least, sctx.mesh,
+                                                    "data")).min())]
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"logits": logs, "ctrl": ctrls, "prefill_s": prefill_s,
+            "step_ms": step_ms}
+
+
+def mg_serve(dev, mesh):
+    """deepseek-7b at full width on the (data 2, model 2) mesh: bf16 at
+    MG_SERVE_LAYERS layers in both regimes (the timed run, B2/B3 counted);
+    then f32 at MG_F32_LAYERS layers, the sharded path with the kernels
+    against the sharded plain versions on every rank and against the
+    unsharded path on rank 0 (every rank's logits are rank 0's: the
+    digests)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.sharding import param_specs, shard_tree
+    from repro_torch.serving import serve_step as ss
+    sctx = M.shard_ctx(mesh, mode="serve")
+    out = {"b2_launches": 0, "b3_launches": 0}
+
+    def local_params(cfg):
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+        local = shard_tree(full, param_specs(param_shapes(cfg), cfg, sctx),
+                           mesh)
+        return full, local
+
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=MG_SERVE_LAYERS)
+    full, local = local_params(cfg)
+    del full
+    _empty(dev)
+    toks = prompt_tokens(cfg, MG_SERVE_B, MG_SERVE_S + MG_SERVE_STEPS, dev,
+                         n=15)
+    for budget in (0, MG_SERVE_BUDGET):
+        fa.LAUNCHES = da.LAUNCHES = 0
+        run = mg_serve_run(local, cfg, sctx, toks, MG_SERVE_S,
+                           MG_SERVE_STEPS, budget)
+        launches = (fa.LAUNCHES, da.LAUNCHES)
+        want = (MG_SERVE_LAYERS, MG_SERVE_LAYERS * MG_SERVE_STEPS)
+        if launches != want:
+            raise AssertionError(f"sharded serve {budget}: B2/B3 launches "
+                                 f"{launches}, expected {want}")
+        out["b2_launches"] += launches[0]
+        out["b3_launches"] += launches[1]
+        if not all(bool(torch.isfinite(x).all()) for x in run["logits"]):
+            raise AssertionError(f"sharded serve {budget}: logits not finite")
+        out["bounded" if budget else "unbounded"] = {
+            "prefill_s": run["prefill_s"], "step_ms": run["step_ms"],
+            "logits_shape": list(run["logits"][-1].shape)}
+    del local
+    _empty(dev)
+
+    # f32: sharded with kernels against unsharded with kernels and against
+    # sharded with the plain versions
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=MG_F32_LAYERS,
+                              param_dtype="float32")
+    full, local = local_params(cfg)
+    toks = prompt_tokens(cfg, MG_SERVE_B, MG_F32_S + MG_F32_STEPS, dev, n=16)
+    top_slot = ss._top_slot
+    margins = []
+
+    def recording_top(mass, valid):
+        if margins and rec[0]:
+            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+            margins[-1].append(float((top2[:, 0] - top2[:, 1]).min()))
+        return top_slot(mass, valid)
+
+    rec = [False]
+    ss._top_slot = recording_top
+    checks, rank = {}, torch.distributed.get_rank()
+    try:
+        for budget in (0, MG_SERVE_BUDGET):
+            row = {}
+            got = mg_serve_run(local, cfg, sctx, toks, MG_F32_S,
+                               MG_F32_STEPS, budget)
+            del margins[:]
+            rec[0] = True
+            plain = mg_serve_run(local, cfg, sctx, toks, MG_F32_S,
+                                 MG_F32_STEPS, budget, impl="plain",
+                                 margins=margins)
+            rec[0] = False
+            row["vs_plain"] = mg_compare(
+                got, plain, [min(m, default=float("inf")) for m in margins],
+                budget, f"sharded serve f32 {budget} vs plain")
+            if rank == 0:           # every rank's logits are rank 0's
+                del margins[:]
+                rec[0] = True
+                want = mg_serve_run(full, cfg, None, toks, MG_F32_S,
+                                    MG_F32_STEPS, budget, margins=margins)
+                rec[0] = False
+                row["vs_unsharded"] = mg_compare(
+                    got, want,
+                    [min(m, default=float("inf")) for m in margins],
+                    budget, f"sharded serve f32 {budget} vs unsharded")
+            row["digest"] = _digest({str(i): x.cpu().numpy() for i, x in
+                                     enumerate(got["logits"])})
+            checks["bounded" if budget else "unbounded"] = row
+    finally:
+        ss._top_slot = top_slot
+    del full, local
+    _empty(dev)
+    out["f32"] = checks
+    return out
+
+
+def mg_compare(got, want, margins, budget, what):
+    """Whole-batch logits within SERVE_LOGIT_TOL up to the first step whose
+    control state differs, which only a near-tie (the reference run's
+    top-2 mass margin within MASS_TOL) may explain."""
+    import torch
+    errs = [float((a - b).abs().max()) for a, b in zip(got["logits"],
+                                                       want["logits"])]
+    diff = [t for t, (a, b) in enumerate(zip(got["ctrl"], want["ctrl"]))
+            if any(not torch.equal(x[k], y[k]) for x, y in zip(a, b)
+                   for k in x)]
+    near = [t for t in diff if margins[t] <= MASS_TOL]
+    if diff and diff[0] not in near:
+        raise Mismatch(f"{what}: ctrl differs at step {diff[0]} with a "
+                       f"top-2 margin {margins[diff[0]]} > {MASS_TOL}")
+    first = diff[0] + 1 if diff else len(errs)
+    if max(errs[:first]) > SERVE_LOGIT_TOL:
+        raise Mismatch(f"{what}: logits differ by {max(errs[:first])} > "
+                       f"{SERVE_LOGIT_TOL}")
+    row = {"logits_max_abs_err": max(errs[:first]),
+           "logits_compared": first, "tol": SERVE_LOGIT_TOL}
+    if budget:
+        row.update(ctrl_steps_differing=diff, near_tie_steps=near,
+                   min_top2_margin=min(margins))
+    return row
+
+
+def mg_probe_gloo(dev):
+    """Whether gloo's ``all_gather`` takes a tensor on ``dev`` (the one
+    collective the port uses; the gloo ranks on the card rely on it)."""
+    import torch
+    x = torch.ones(4, device=dev)
+    parts = [torch.empty_like(x) for _ in range(MG_WORLD)]
+    try:
+        torch.distributed.all_gather(parts, x)
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:120]}"
+    return "accepted"
+
+
+def mg_wait(go, timeout=MG_TIMEOUT):
+    """Wait for the file ``go`` (the parent's signal that (a) is done:
+    (b)'s ranks start up while (a) runs, then measure alone)."""
+    deadline = time.monotonic() + timeout
+    while not Path(go).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no start signal {go} after {timeout} s")
+        time.sleep(0.02)
+
+
+def mg_world_b(dev, go):
+    """(b) MG_WORLD gloo ranks sharing the card: the sharded fleets,
+    ``Engine(mesh=)`` at MG_LANES lanes, a small ``run_sweep(mesh=)``
+    grid (rank 0 against the unsharded run on the card, every rank's
+    result against rank 0's), and sharded serving on a (data 2, model 2)
+    mesh."""
+    import torch
+    from repro_torch.bench import Scenario, Sweep, run_sweep
+    from repro_torch.core import Engine
+    from repro_torch.data.traces import family_footprint, k_for
+    from repro_torch.kernels import policy_step as ps
+    from repro_torch.launch import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.device(dev).type
+    rank = torch.distributed.get_rank()
+    line = torch.distributed.device_mesh.DeviceMesh(
+        kind, torch.arange(MG_WORLD), mesh_dim_names=("data",))
+    out = {"backend": torch.distributed.get_backend(), "b1_launches": 0,
+           "gloo_cuda_all_gather": mg_probe_gloo(dev)}
+    mg_wait(go)
+    fleets = mg_fleets(dev, line)
+    out["fleet"] = fleets
+    out["b1_launches"] += sum(f["b1_launches"] for f in fleets.values())
+    keys, sizes, costs = replay_inputs(MG_LANES, MG_LANES_T, dev, MG_FAMILY)
+    K = k_for(family_footprint(MG_FAMILY), "L")
+    out["replay"] = {}
+    for spec in ("dac", "ac", "climb", MG_SLOT):
+        T = MG_LANES_T if spec != MG_SLOT else SLOT_T
+        kw = dict(sizes=sizes[:, :T], costs=costs[:, :T], **main_mode(spec))
+        ps.LAUNCHES = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = Engine(device=dev, mesh=line).replay(spec, keys[:, :T], K,
+                                                   **kw)
+        _sync(dev)
+        s = time.perf_counter() - t0
+        out["b1_launches"] += ps.LAUNCHES
+        got = _arrays(got)
+        row = {"T": T, "lanes": MG_LANES, "s": s, "launches": ps.LAUNCHES,
+               "digest": _digest(got)}
+        if rank == 0:                   # every rank's result is rank 0's
+            want = Engine(device=dev).replay(spec, keys[:, :T], K, **kw)
+            _equal_arrays(got, _arrays(want), f"(b) {spec}")
+        out["replay"][spec] = row
+    sw = Sweep("mesh", policies=("fifo", "lru", "dac", "ac", "climb"),
+               seeds=tuple(range(MG_WORLD)),
+               scenarios=(Scenario("zipf", trace="zipf(N=4096,alpha=0.9)",
+                                   T=SLOT_T, K=("S", "L")),), observe=True)
+    ps.LAUNCHES = 0
+    got = run_sweep(sw, engine=Engine(device=dev), mesh=line)
+    out["b1_launches"] += ps.LAUNCHES
+    out["sweep_launches"] = ps.LAUNCHES
+    out["sweep_records"] = [no_wall(r) for r in got.records]
+    if rank == 0:
+        want = run_sweep(sw, engine=Engine(device=dev))
+        if out["sweep_records"] != [no_wall(r) for r in want.records]:
+            raise Mismatch("(b) run_sweep(mesh=) records differ from the "
+                           "unsharded grid's")
+    out["sweep_cells"] = len(got.records)
+    out["sweep_s"] = got.wall_s
+    out["serve"] = mg_serve(dev, M.make_test_mesh(2, 2))
+    return out
+
+
+def phase_multi_gpu(dev, tmp):
+    """Phase 15: the port's mesh, lane-sharded replay, the sharded fleet
+    and sharded serving, in worlds of spawned ranks (the kernels are
+    built already, so no rank builds one): (a) one NCCL rank, and beside
+    it (b)'s fleets in MG_WORLD gloo ranks on the CPU; then (b) MG_WORLD
+    gloo ranks sharing the card, which start up beside (a) and measure
+    once (a) and the CPU world are done."""
+    from repro_torch.core.simulator import GRAPH_CHUNK
+    from repro_torch.fleet import replay_fleet
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    _empty(dev)
+    tmp = Path(tmp)
+    res = {"phase": "multi_gpu"}
+    go = tmp / "b-go"
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        b = pool.submit(M.launch_world, mg_world_b, MG_WORLD, (dev, str(go)),
+                        init_file=str(tmp / "b"), backend="gloo",
+                        device=dev, timeout=MG_TIMEOUT)
+        t_cpu = time.perf_counter()
+        cpu = pool.submit(M.launch_world, mg_world_cpu, MG_WORLD, (),
+                          init_file=str(tmp / "cpu"), backend="gloo",
+                          device="cpu", timeout=MG_TIMEOUT)
+        t0 = time.perf_counter()
+        try:
+            a = M.launch_world(mg_world_a, 1, (dev,),
+                               init_file=str(tmp / "a"),
+                               backend="nccl" if dev == "cuda" else "gloo",
+                               device=dev, timeout=MG_TIMEOUT)[0]
+            a_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = cpu.result()
+            cpu_s = time.perf_counter() - t_cpu
+            cpu_after_a_s = time.perf_counter() - t0
+        finally:
+            go.touch()                  # (b) must not wait out its timeout
+        t0 = time.perf_counter()
+        b = b.result()
+        b_s = time.perf_counter() - t0
+    cpu_rank_s = [c[1] for c in cpu]
+    cpu = [c[0] for c in cpu]
+    for r, (out, want) in enumerate(zip(b, cpu)):
+        for name, fl in out["fleet"].items():
+            _equal_arrays(fl["arrays"], want[name],
+                          f"(b) rank {r} fleet {name}: card vs CPU")
+        # rank 0 held its results against the unsharded runs; the others
+        # hold the same results
+        for spec, row in out["replay"].items():
+            if row["digest"] != b[0]["replay"][spec]["digest"]:
+                raise Mismatch(f"(b) rank {r} {spec}: not rank 0's result")
+        if out["sweep_records"] != b[0]["sweep_records"]:
+            raise Mismatch(f"(b) rank {r}: run_sweep records not rank 0's")
+        for regime, row in out["serve"]["f32"].items():
+            if row["digest"] != b[0]["serve"]["f32"][regime]["digest"]:
+                raise Mismatch(f"(b) rank {r} f32 {regime}: logits not "
+                               "rank 0's")
+    cases = mg_fleet_cases(dev)
+    for name, tier, reqs, rebalance in cases:
+        want = mg_fleet_launches(reqs.key.shape[0], rebalance, GRAPH_CHUNK)
+        got = [out["fleet"][name]["b1_launches"] for out in b + [a]
+               if name in out["fleet"]]
+        if dev == "cuda" and any(n != want for n in got):
+            raise AssertionError(f"fleet {name}: B1 launches {got} on the "
+                                 f"ranks, expected {want} each")
+    # the unsharded pool fleet on the card, beside the sharded one's step
+    name, tier, reqs, rebalance = cases[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    replay_fleet(tier, reqs, observe=True, device=dev)
+    _sync(dev)
+    unsharded_us = (time.perf_counter() - t0) * 1e6 / reqs.key.shape[0]
+    fleet_rows = {}
+    for name in b[0]["fleet"]:
+        rows = [out["fleet"][name] for out in b]
+        T = rows[0]["T"]
+        fleet_rows[name] = {
+            "T": T, "rebalance": dict((c[0], c[3]) for c in cases)[name],
+            "us_a_step": [r["s"] * 1e6 / T for r in rows],
+            "redeals": rows[0]["redeals"],
+            "redeal_ms_median": [r["redeal_ms"][len(r["redeal_ms"]) // 2]
+                                 if r["redeal_ms"] else None for r in rows],
+            "b1_launches": [r["b1_launches"] for r in rows]}
+    fleet_rows["pool"]["unsharded_us_a_step"] = unsharded_us
+    for out in b:
+        del out["sweep_records"]
+        for row in out["replay"].values():
+            del row["digest"]
+        for row in out["serve"]["f32"].values():
+            del row["digest"]
+    serve = [out["serve"] for out in b]
+    a["fleet"] = {k: {f: v[f] for f in ("s", "T", "b1_launches", "redeals")}
+                  for k, v in a["fleet"].items()}
+    res["a"] = {"world": 1, **a, "s": a_s}
+    res["b"] = {"world": MG_WORLD, "backend": b[0]["backend"],
+                "s_after_a": b_s,
+                "gloo_cuda_all_gather": b[0]["gloo_cuda_all_gather"],
+                "fleet": fleet_rows,
+                "replay": [out["replay"] for out in b],
+                "sweep": {"cells": b[0]["sweep_cells"],
+                          "s": [out["sweep_s"] for out in b],
+                          "b1_launches": [out["sweep_launches"]
+                                          for out in b]},
+                "serve": serve}
+    # the CPU world's seconds: launch to result, the time it ran on after
+    # (a) (holding (b) back), and each rank's fleets
+    res["cpu_world"] = {"world": MG_WORLD, "s": cpu_s,
+                        "after_a_s": cpu_after_a_s, "rank_s": cpu_rank_s}
+    launches = {
+        "b1": a["b1_launches"] + sum(out["b1_launches"] for out in b),
+        "b2": sum(s["b2_launches"] for s in serve),
+        "b3": sum(s["b3_launches"] for s in serve)}
+    if dev == "cuda" and not all(launches.values()):
+        raise AssertionError(f"phase 15 launched a kernel no time: "
+                             f"{launches}")
+    res["launches"] = launches
+    res["s"] = time.perf_counter() - t_phase
+    return res, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3414,6 +4027,10 @@ def main() -> int:
     res, arch_launches = phase_archs(dev)
     emit(res)
     emit(phase_train(dev))
+    # the kernels are built: spawned ranks load them
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        res, mg_launches = phase_multi_gpu(dev, tmp)
+    emit(res)
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
     print(json.dumps({"kernels": [{
@@ -3421,10 +4038,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
         "replaces": "src/repro/kernels/policy_step.py:247",
         # the main path's replays, Table III's, the corpus sweeps', the
-        # tier, fleet and admission sweeps' (counted at capture there) and
-        # the inline campaigns'
+        # tier, fleet and admission sweeps' (counted at capture there),
+        # the inline campaigns' and phase 15's ranks' sharded replays
         "launches": launches + table_launches + corpus_launches
-        + multi_launches + campaign_launches,
+        + multi_launches + campaign_launches + mg_launches["b1"],
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -3432,9 +4049,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:107",
-        # phase 6's prefills and phase 13's
+        # phase 6's prefills, phase 13's and phase 15's ranks'
         "launches": serve["unbounded"]["b2_launches"]
-        + serve["bounded"]["b2_launches"] + arch_launches["b2"],
+        + serve["bounded"]["b2_launches"] + arch_launches["b2"]
+        + mg_launches["b2"],
         "max_abs_err": attn_err["flash"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -3442,9 +4060,10 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:136",
-        # phase 6's decode steps and phase 13's
+        # phase 6's decode steps, phase 13's and phase 15's ranks'
         "launches": serve["unbounded"]["b3_launches"]
-        + serve["bounded"]["b3_launches"] + arch_launches["b3"],
+        + serve["bounded"]["b3_launches"] + arch_launches["b3"]
+        + mg_launches["b3"],
         "max_abs_err": attn_err["decode"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],

@@ -7,8 +7,10 @@ request batch (S = the sweep's seed axis) and issues a *single*
 (metrics-only, the totals reduced on the device), instead of a Python loop
 over seeds.  On CUDA a rank policy's cell is one launch of kernel B1 and a
 slot policy's cell a CUDA graph per chunk of steps (``core/simulator.py``);
-the engine's device decides, so there is no ``use_pallas=`` and no
-``mesh=`` (multi-GPU is ROADMAP A13).
+the engine's device decides, so there is no ``use_pallas=``.  With
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) materialized cells
+shard their seed lanes over the mesh's ``data`` axis, every rank running
+the same sweep and getting the same records.
 
 Two execution paths per cell, producing identical records (bit for bit
 whenever the float32 byte/cost running sums are exact; always for the
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -413,7 +416,7 @@ def run_fleet_sweep(sweep: FleetSweep, *, engine: Engine | None = None,
                       _fleet_cell_record, FleetSweepResult, progress)
 
 
-def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
+def run_sweep(sweep: Sweep, *, engine: Engine | None = None, mesh=None,
               stream="auto", chunk: int = ingest.DEFAULT_CHUNK,
               progress=None) -> SweepResult:
     """Execute every cell of ``sweep`` through ``engine`` (default
@@ -429,7 +432,12 @@ def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
     running sums are exact and to float32 rounding beyond that (the
     streaming path sums its chunks on the host in float64).  Each cell's
     ``wall_s`` ends after ``torch.cuda.synchronize()`` on the card.
-    ``progress`` (e.g. ``print``) receives a line per cell.
+    ``mesh`` applies to materialized cells only (streamed chunks run
+    unsharded): under ``"auto"`` a mesh keeps synthetic cells on the
+    sharded materialized path, and any cell that still streams
+    (file-backed, or forced with ``stream=True``) warns that the mesh is
+    not consulted.  ``progress`` (e.g. ``print``) receives a line per
+    cell.
 
     >>> from repro_torch.bench import Scenario, Sweep
     >>> sw = Sweep("doc", policies=("lru",), seeds=(0,),
@@ -439,7 +447,8 @@ def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
     >>> sorted(res.records[0]["metrics"])
     ['byte_miss_ratio', 'hit_ratio', 'miss_ratio', 'penalty_ratio']
     """
-    engine = engine or Engine()
+    engine = engine or Engine(mesh=mesh)
+    have_mesh = mesh is not None or engine.mesh is not None
     dev = engine.device
     t_start = time.perf_counter()
     records = []
@@ -449,6 +458,14 @@ def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
     host_name, host_val = None, None
     for pol, sc, K, k_label in sweep.cells():
         streamed = should_stream(sc, stream)
+        if streamed and have_mesh:
+            if stream == "auto" and not sc.trace_spec().is_file:
+                streamed = False    # a mesh-sharded materialized cell
+                                    # beats an unsharded stream
+            else:
+                warnings.warn(
+                    f"cell ({pol}, {sc.name}, K={K}) streams unsharded: "
+                    "replay_stream does not consult mesh=", stacklevel=2)
         # one-time per-scenario host work (trace generation, request
         # materialization) stays outside the per-cell wall timer
         if streamed:
@@ -467,7 +484,8 @@ def run_sweep(sweep: Sweep, *, engine: Engine | None = None,
                 reqs_cache[sc.name] = materialize(sc, sweep.seeds, dev)
             t0 = time.perf_counter()
             res = engine.replay(pol, reqs_cache[sc.name], K,
-                                observe=sweep.observe, collect_info=False)
+                                observe=sweep.observe, collect_info=False,
+                                mesh=mesh)
             _sync(dev)
         wall = time.perf_counter() - t0
         records.append(_cell_record(pol, sc, K, k_label, sweep.seeds,

@@ -227,7 +227,19 @@ def _capture(body):
     return graph.replay
 
 
-def _replay_graphed(run, reqs: Request, carry, sinks, chunk):
+def _segments(T, cuts):
+    """``[lo, hi)`` step ranges that end after each step in ``cuts`` (and
+    at ``T``)."""
+    ends = sorted({c + 1 for c in cuts if 0 <= c < T - 1} | {T})
+    return list(zip([0] + ends[:-1], ends))
+
+
+def _cols(reqs, lo, hi):
+    return Request(*(x[:, lo:hi] for x in reqs))
+
+
+def _replay_graphed(run, reqs: Request, carry, sinks, chunk, cuts=(),
+                    at_cut=None):
     """A step loop on CUDA: one graph of ``chunk`` steps of ``run``,
     captured over static request, carry and sink buffers and replayed per
     chunk; the tail runs eagerly.  ``run(block, carry, sinks, at)`` steps
@@ -235,49 +247,70 @@ def _replay_graphed(run, reqs: Request, carry, sinks, chunk):
     returns the new carry (nested dicts and tuples of tensors), writing
     each step's outputs at column ``at + s`` of ``sinks`` (the same kind of
     tree, time on dim 1, or ``None``).  The slot policies, the tier and
-    the fleet all loop through here.  Returns the final carry."""
+    the fleet all loop through here.
+
+    ``cuts`` (step indices) end the graph chunks: after step ``c`` the loop
+    calls ``at_cut(carry, c)`` outside any graph (the sharded fleet's
+    collective budget re-deal) and goes on from the carry it returns;
+    each stretch between cuts replays whole chunks, then its tail eagerly.
+    Returns the final carry."""
     T = reqs.key.shape[1]
-    n_full = T // chunk
-    if n_full:
-        def window(x):
-            return torch.empty((x.shape[0], chunk) + tuple(x.shape[2:]),
-                               dtype=x.dtype, device=x.device)
+    segments = _segments(T, cuts)
+    replay = static_carry = static_req = static_sinks = None
+    for j, (lo, hi) in enumerate(segments):
+        n_full = (hi - lo) // chunk
+        if n_full and replay is None:
+            def window(x):
+                return torch.empty((x.shape[0], chunk) + tuple(x.shape[2:]),
+                                   dtype=x.dtype, device=x.device)
 
-        static_req = Request(*(window(x) for x in reqs))
-        static_carry = _tree_map(torch.clone, carry)
-        static_sinks = _tree_map(window, sinks)
-        # one eager step on copies first, so that every kernel the step
-        # launches (B1's library included) is loaded before the capture
-        run(Request(*(x[:, :1] for x in reqs)),
-            _tree_map(torch.clone, carry), None, 0)
+            static_req = Request(*(window(x) for x in reqs))
+            static_carry = _tree_map(torch.clone, carry)
+            static_sinks = _tree_map(window, sinks)
+            # one eager step on copies first, so that every kernel the step
+            # launches (B1's library included) is loaded before the capture
+            run(_cols(reqs, 0, 1), _tree_map(torch.clone, carry), None, 0)
 
-        def body():
-            out = run(static_req, static_carry, static_sinks, 0)
-            _tree_map(lambda dst, src: dst.copy_(src), static_carry, out)
+            def body():
+                out = run(static_req, static_carry, static_sinks, 0)
+                _tree_map(lambda dst, src: dst.copy_(src), static_carry, out)
 
-        replay = _capture(body)
+            replay = _capture(body)
+            carry = static_carry
         for c in range(n_full):
-            lo, hi = c * chunk, (c + 1) * chunk
+            a, b = lo + c * chunk, lo + (c + 1) * chunk
+            if carry is not static_carry:
+                _tree_map(lambda dst, src: dst.copy_(src), static_carry,
+                          carry)
+                carry = static_carry
             for x, y in zip(static_req, reqs):
-                x.copy_(y[:, lo:hi])
+                x.copy_(y[:, a:b])
             replay()
-            _tree_map(lambda dst, src: dst[:, lo:hi].copy_(src), sinks,
+            _tree_map(lambda dst, src: dst[:, a:b].copy_(src), sinks,
                       static_sinks)
-        carry = static_carry
-    tail = Request(*(x[:, n_full * chunk:] for x in reqs))
-    return run(tail, carry, sinks, n_full * chunk)
+        tail = lo + n_full * chunk
+        carry = run(_cols(reqs, tail, hi), carry, sinks, tail)
+        if j < len(segments) - 1:
+            carry = at_cut(carry, hi - 1)
+    return carry
 
 
 def run_steps(run, reqs: Request, carry, sinks=None,
-              chunk: int | None = None):
+              chunk: int | None = None, cuts=(), at_cut=None):
     """Drive a step body (see :func:`_replay_graphed`) over the time axis
     (dim 1) of ``reqs``: on CUDA through the graph loop at ``chunk`` steps
     a graph (default :data:`GRAPH_CHUNK`; 0 runs the eager loop), on the
-    CPU as one plain loop.  Returns the final carry."""
+    CPU as one plain loop; ``at_cut(carry, c)`` runs after each step ``c``
+    of ``cuts``, between graphs.  Returns the final carry."""
     chunk = GRAPH_CHUNK if chunk is None else int(chunk)
     if reqs.key.device.type == "cuda" and chunk > 0:
-        return _replay_graphed(run, reqs, carry, sinks, chunk)
-    return run(reqs, carry, sinks, 0)
+        return _replay_graphed(run, reqs, carry, sinks, chunk, cuts, at_cut)
+    segments = _segments(reqs.key.shape[1], cuts)
+    for j, (lo, hi) in enumerate(segments):
+        carry = run(_cols(reqs, lo, hi), carry, sinks, lo)
+        if j < len(segments) - 1:
+            carry = at_cut(carry, hi - 1)
+    return carry
 
 
 def _replay_rank(policy: RankPolicy, reqs, state, want_obs, collect_info):
@@ -335,10 +368,38 @@ def _lane0(res: ReplayResult) -> ReplayResult:
     return ReplayResult(pick(res.info), pick(res.metrics), obs)
 
 
+def _replay_sharded(policy, reqs: Request, K, mesh, axis, observe,
+                    collect_info) -> ReplayResult:
+    """This rank's contiguous block of ``B / axis_size`` lanes replayed on
+    its device, then every per-lane output all-gathered over ``axis`` (no
+    collective inside the time loop): every rank returns the whole
+    batch's result."""
+    from ..launch.mesh import axis_index, axis_size, cat
+    n = axis_size(mesh, axis)
+    B = reqs.key.shape[0]
+    if B % n:
+        raise ValueError(f"the batch of {B} lanes must divide evenly over "
+                         f"the {n}-rank {axis!r} mesh axis")
+    lo = axis_index(mesh, axis) * (B // n)
+    local = Request(*(x[lo:lo + B // n] for x in reqs))
+    state = policy.init(K, lanes=B // n, device=reqs.key.device)
+    res, _ = replay_lanes(policy, local, state, observe=observe,
+                          collect_info=collect_info)
+    return _tree_map(lambda x: cat(x, mesh, (axis,)), res)
+
+
 class Engine:
     """The replay entry point, on ``device`` (``"cuda"`` unless the caller
     asks for ``"cpu"``).  ``Engine()`` on a machine without a GPU raises; it
     does not fall back to the CPU.
+
+    Given a mesh (a ``torch.distributed`` ``DeviceMesh``, see
+    :mod:`repro_torch.launch.mesh`), a ``[B, T]`` batch is sharded over
+    its ``axis``: every rank passes the same requests, replays its own
+    block of ``B / axis_size`` independent caches on its device (one B1
+    launch for a rank policy, the graph loop for a slot policy; the
+    paper's multi-threaded replay of Tables IV/V) and gets the whole
+    batch's result back.
 
     >>> import numpy as np
     >>> res = Engine(device="cpu").replay("dac", np.zeros((2, 5), np.int32),
@@ -347,7 +408,11 @@ class Engine:
     [0.2, 0.2]
     """
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None, axis: str = "data"):
+        if mesh is not None:
+            from ..launch.mesh import check_mesh
+            check_mesh(mesh)
+        self.mesh, self.axis = mesh, axis
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -362,12 +427,14 @@ class Engine:
         return policy
 
     def replay(self, policy, requests, K: int, *, sizes=None, costs=None,
-               observe: bool = False,
+               mesh=None, axis: str | None = None, observe: bool = False,
                collect_info: bool = True) -> ReplayResult:
         """Replay ``requests`` (``[T]`` or ``[B, T]``) through ``policy``
         (an instance or a spec string) at capacity ``K``.
         ``collect_info=False`` keeps only the per-lane totals
-        (``result.info is None``)."""
+        (``result.info is None``).  ``mesh``/``axis`` override the
+        engine's; a ``[T]`` request ignores the mesh, and ``B`` must divide
+        over the axis."""
         policy = self._resolve(policy)
         K = int(K)
         reqs = Request.of(requests, sizes, costs, device=self.device)
@@ -376,6 +443,10 @@ class Engine:
                 f"requests must be [T] or [B, T], got shape "
                 f"{tuple(reqs.key.shape)}")
         single = reqs.key.ndim == 1
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is not None and not single:
+            return _replay_sharded(policy, reqs, K, mesh, axis or self.axis,
+                                   observe, collect_info)
         if single:
             reqs = Request(*(x.unsqueeze(0) for x in reqs))
         state = policy.init(K, lanes=reqs.key.shape[0], device=self.device)
@@ -398,18 +469,23 @@ class Engine:
                            observe=observe, device=self.device)
 
     def replay_fleet(self, tier, requests, *, sizes=None, costs=None,
-                     observe: bool = False, mesh=None):
+                     observe: bool = False, mesh=None, axis: str | None = None,
+                     rebalance: int = 256):
         """Replay a dynamic-fleet stream (``-1`` keys = idle lane; ``[T,
         N]`` or ``[S, T, N]``) through a :class:`repro_torch.fleet.FleetTier`:
         tenant arrivals and departures, arbiter-priced capacity, per-lane
         SLO telemetry.  Returns a :class:`repro_torch.fleet.FleetResult`.
-        ``mesh=`` (the lane axis sharded over devices) is not ported."""
+        ``mesh=`` shards the lanes of a ``[T, N]`` stream over ``axis``
+        with a budget re-deal every ``rebalance`` steps
+        (:func:`repro_torch.fleet.replay_fleet`)."""
         from ..fleet import FleetTier, replay_fleet
         if not isinstance(tier, FleetTier):
             raise TypeError(
                 f"expected a FleetTier, got {type(tier).__name__}")
         return replay_fleet(tier, requests, sizes=sizes, costs=costs,
-                            observe=observe, mesh=mesh, device=self.device)
+                            observe=observe, mesh=mesh,
+                            axis=axis or self.axis, rebalance=rebalance,
+                            device=self.device)
 
     def replay_stream(self, policy, requests, K: int, *, sizes=None,
                       costs=None, chunk: int | None = None,

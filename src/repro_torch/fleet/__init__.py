@@ -7,8 +7,8 @@ all inside one step loop over fixed-shape ``[n_lanes]`` pools with an
 alive mask.  The ``auction`` arbiter prices capacity by each tenant's
 byte-miss-cost EWMA, and every replay carries SLO telemetry: per-tenant
 penalty quantiles (p50/p99 from the histograms) and Jain's
-occupancy-fairness index.  The reference's lane sharding over a device
-mesh is ROADMAP A13.
+occupancy-fairness index.  ``replay_fleet(mesh=...)`` shards the lanes
+over the ranks of a mesh axis with a periodic budget re-deal.
 
 >>> from repro_torch.data.traces import fleet_trace
 >>> keys = fleet_trace(N=64, T=400, n_lanes=4, rate=0.05,

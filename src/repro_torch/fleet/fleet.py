@@ -1,5 +1,5 @@
 """Dynamic multi-tenant fleet: tenant lifecycle + auction arbitration in
-one step loop (port of ``fleet/fleet.py``, on one device).
+one step loop (port of ``fleet/fleet.py``).
 
 :class:`FleetTier` keeps the tier's fixed-shape discipline (``n_lanes``
 lane slots allocated up front) and moves the lifecycle inside the loop
@@ -22,8 +22,16 @@ trace family marks an idle lane with key ``-1``.  Per step, in order:
 
 ``sum(k) + k_min * n_idle <= budget`` holds at every step.  On CUDA the
 time loop is the engine's CUDA graph loop
-(``core/simulator.py::_replay_graphed``).  The reference's sharded replay
-(``mesh=``) is ROADMAP A13 and not ported: ``mesh=`` raises.
+(``core/simulator.py::_replay_graphed``).
+
+With ``mesh=`` the lanes split over the ranks of a mesh axis: each shard
+replays its contiguous lane block against its own budget (an even split,
+the remainder to shard 0), and every ``rebalance`` steps (step 0
+included) the shards publish their committed capacity and utility mass
+and re-deal the global slack in proportion to utility, as the
+reference's ``psum`` does.  The re-deal is one all-gather between graph
+chunks (the chunks end at its steps), and its float32 sums add in shard
+order.
 
 >>> from repro_torch.data.traces import fleet_trace
 >>> keys = fleet_trace(N=64, T=600, n_lanes=4, rate=0.05,
@@ -46,7 +54,7 @@ from ..core import make_policy
 from ..core.dynamicadaptiveclimb import DynamicAdaptiveClimb
 from ..core.policy import EMPTY, Request, lane_pad
 from ..core.simulator import Metrics, _host, run_steps
-from ..tier.arbiter import make_arbiter
+from ..tier.arbiter import _seq_sum, make_arbiter
 from ..tier.tier import _Aggregates, _first, _lanes_in, _zero_acc, time_mean
 from . import telemetry
 
@@ -153,12 +161,14 @@ class FleetTier:
         return self.policy.k_min if self.resizable else 0
 
     # -- state --------------------------------------------------------------
-    def init(self, fleets: int = 1, device="cuda") -> dict:
-        """Fresh state of ``fleets`` fleets: the policy state ``p`` on
-        ``fleets * n_lanes`` lanes (fleet-major), ``alive`` and ``util`` on
-        ``[fleets, n_lanes]``.  All lanes start idle: ``k = cap = 0``,
-        caches EMPTY, no utility."""
-        n = self.n_lanes
+    def init(self, fleets: int = 1, device="cuda",
+             n_lanes: int | None = None) -> dict:
+        """Fresh state of ``fleets`` fleets of ``n_lanes`` lanes (default:
+        all; the sharded path builds one per-shard block): the policy state
+        ``p`` on ``fleets * n_lanes`` lanes (fleet-major), ``alive`` and
+        ``util`` on ``[fleets, n_lanes]``.  All lanes start idle: ``k = cap
+        = 0``, caches EMPTY, no utility."""
+        n = self.n_lanes if n_lanes is None else int(n_lanes)
         lanes = fleets * n
         if self.resizable:
             def full(v):
@@ -207,12 +217,14 @@ def _count(mask):
     return mask.sum(-1, keepdim=True)
 
 
-def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None):
+def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None,
+                budget=None):
     """One fleet step (lifecycle + policy + arbitration) for ``[S, N]``
     requests.  ``fresh`` is a non-resizable policy's initial state on all
-    lanes (an arrival resets its lane to it).  Returns ``(st, (hit,
-    bytes_missed, penalty, k, alive))``, every output ``[S, N]`` and
-    masked to live lanes."""
+    lanes (an arrival resets its lane to it); ``budget`` the pool these
+    lanes admit and arbitrate in (default the tier's; a shard's ``[S, 1]``
+    tensor).  Returns ``(st, (hit, bytes_missed, penalty, k, alive))``,
+    every output ``[S, N]`` and masked to live lanes."""
     S, n = req.key.shape
     p, alive_prev, util = st["p"], st["alive"], st["util"]
     alive = req.key >= 0
@@ -221,7 +233,7 @@ def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None):
     flat_alive = alive.reshape(-1)
     safe_req = Request(key=torch.where(alive, req.key, 0).reshape(-1),
                        size=req.size.reshape(-1), cost=req.cost.reshape(-1))
-    budget = tier.budget
+    budget = tier.budget if budget is None else budget
 
     def view(x):
         return x.view(S, n)
@@ -292,9 +304,10 @@ def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None):
             # idle lanes keep their k_min admission reserve out of the
             # arbitrated pool
             budget_eff = budget - k_min * _count(~alive)
-            caps = tier.arbiter(k, demanding, budget_eff, n, utility=util)
+            caps = tier.arbiter(k, demanding, budget_eff, tier.n_lanes,
+                                utility=util)
         else:
-            caps = tier.arbiter(k, demanding, budget, n)
+            caps = tier.arbiter(k, demanding, tier.budget, tier.n_lanes)
         cap = torch.where(alive, caps, 0).to(torch.int32)
         p = {"cache": cache, "jump": jump.reshape(-1),
              "jump2": jump2.reshape(-1), "k": k.reshape(-1),
@@ -319,18 +332,21 @@ def _acc_fleet(acc: Metrics, req: Request, hit, bm, pen, alive) -> Metrics:
 
 
 def _scan_fleet(tier: FleetTier, reqs: Request, observe: bool,
-                chunk) -> FleetResult:
-    """Metrics-in-carry replay of ``[S, T, N]`` fleet streams."""
+                chunk, shard=None) -> FleetResult:
+    """Metrics-in-carry replay of ``[S, T, N]`` fleet streams; with
+    ``shard`` = ``(mesh, axis, rebalance, budget)`` one shard's lane block
+    under the re-dealt budget (``S == 1``)."""
     S, T, n = reqs.key.shape
     dev = reqs.key.device
     fresh = (None if tier.resizable else
              tier.policy.init(tier.share, lanes=S * n, device=dev))
 
     def run(block, carry, sinks, at):
-        st, acc, ksum, asum, hist = carry
+        st, acc, ksum, asum, hist, sb = carry
         for s in range(block.key.shape[1]):
             req = Request(*(x[:, s] for x in block))
-            st, (hit, bm, pen, k, alive) = _fleet_step(tier, st, req, fresh)
+            st, (hit, bm, pen, k, alive) = _fleet_step(tier, st, req, fresh,
+                                                       sb)
             acc = _acc_fleet(acc, req, hit, bm, pen, alive)
             bucket = telemetry.penalty_bucket(pen).long().unsqueeze(-1)
             hist = hist.scatter_add(-1, bucket,
@@ -340,24 +356,106 @@ def _scan_fleet(tier: FleetTier, reqs: Request, observe: bool,
             if sinks is not None:
                 sinks["k"][:, at + s] = k
                 sinks["alive"][:, at + s] = alive
-        return st, acc, ksum, asum, hist
+        return st, acc, ksum, asum, hist, sb
 
     zf = torch.zeros((S, n), dtype=torch.float32, device=dev)
-    carry = (tier.init(S, dev), _zero_acc((S, n), dev), zf, zf,
+    sb = cuts = at_cut = None
+    if shard is not None:
+        mesh, axis, rebalance, budget = shard
+        sb = torch.full((S, 1), budget, dtype=torch.int64, device=dev)
+        if tier.resizable and tier.arbiter.pooled:
+            cuts, at_cut = range(0, T, rebalance), _redeal(tier, mesh, axis)
+    carry = (tier.init(S, dev, n), _zero_acc((S, n), dev), zf, zf,
              torch.zeros((S, n, telemetry.BINS), dtype=torch.int32,
-                         device=dev))
+                         device=dev), sb)
     sinks = None
     if observe:
         sinks = {"k": torch.empty((S, T, n), dtype=torch.int32, device=dev),
                  "alive": torch.empty((S, T, n), dtype=torch.bool,
                                       device=dev)}
-    _, acc, ksum, asum, hist = run_steps(run, reqs, carry, sinks, chunk)
+    if cuts is None:
+        _, acc, ksum, asum, hist, _ = run_steps(run, reqs, carry, sinks,
+                                                chunk)
+    else:
+        _, acc, ksum, asum, hist, _ = run_steps(run, reqs, carry, sinks,
+                                                chunk, cuts, at_cut)
     return FleetResult(metrics=acc, avg_k=time_mean(ksum, T),
                        alive_frac=time_mean(asum, T), hist=hist, obs=sinks)
 
 
+def _redeal(tier: FleetTier, mesh, axis):
+    """The re-deal after a rebalance step, between graph chunks: each
+    shard's committed capacity (claimed slots + admission reserve +
+    uncashed grants) and utility mass ``w = sum(util) + 1`` (idle shards
+    keep a bid), gathered over ``axis``; each shard's next budget is its
+    committed capacity plus ``floor(slack * w / wsum)`` of the global
+    slack.  ``sum(util)`` and ``wsum`` add left to right in float32 (shard
+    order for ``wsum``), as the reference's compiled CPU program adds
+    them."""
+    from ..launch.mesh import gather
+    k_min = tier.k_min
+
+    def at_cut(carry, t):
+        st, acc, ksum, asum, hist, sb = carry
+        alive = st["alive"]
+        k = st["p"]["k"].view(alive.shape)
+        cap = st["p"]["cap"].view(alive.shape)
+        outstanding = _count(torch.where(alive, torch.clamp(cap - k, min=0),
+                                         0))
+        committed = _count(k) + k_min * _count(~alive) + outstanding
+        w = _seq_sum(st["util"]) + 1.0
+        # one gather: both exact in float64
+        mine = torch.cat([committed.double(), w.double()], -1)
+        parts = gather(mine, mesh, axis)
+        total = sum(p[:, :1].long() for p in parts)
+        wsum = parts[0][:, 1:].float()
+        for p in parts[1:]:
+            wsum = wsum + p[:, 1:].float()
+        slack = torch.clamp(tier.budget - total, min=0).float()
+        share = torch.floor(slack * w / wsum).long()
+        return st, acc, ksum, asum, hist, committed + share
+
+    return at_cut
+
+
+def _replay_sharded(tier: FleetTier, reqs: Request, observe, chunk, mesh,
+                    axis, rebalance) -> FleetResult:
+    from ..launch.mesh import axis_index, axis_size, cat
+    n_shards = axis_size(mesh, axis)
+    if tier.n_lanes % n_shards:
+        raise ValueError(
+            f"n_lanes={tier.n_lanes} must divide evenly over the "
+            f"{n_shards}-device {axis!r} mesh axis")
+    n_local = tier.n_lanes // n_shards
+    if tier.resizable and tier.budget // n_shards < n_local * tier.k_min:
+        raise ValueError(
+            f"per-shard budget {tier.budget // n_shards} cannot float "
+            f"{n_local} lanes at k_min={tier.k_min}; raise the budget or "
+            "use fewer shards")
+    if rebalance < 1:
+        raise ValueError(f"rebalance must be >= 1, got {rebalance}")
+    idx = axis_index(mesh, axis)
+    lo = idx * n_local
+    local = Request(*(x[..., lo:lo + n_local].contiguous() for x in reqs))
+    budget = tier.budget // n_shards + (tier.budget % n_shards
+                                        if idx == 0 else 0)
+    res = _scan_fleet(tier, local, observe, chunk,
+                      (mesh, axis, rebalance, budget))
+
+    def lanes(x, dim):
+        return cat(x, mesh, (axis,), dim)
+
+    obs = None if res.obs is None else {k: lanes(v, 2)
+                                        for k, v in res.obs.items()}
+    return FleetResult(metrics=Metrics(*(lanes(x, 1) for x in res.metrics)),
+                       avg_k=lanes(res.avg_k, 1),
+                       alive_frac=lanes(res.alive_frac, 1),
+                       hist=lanes(res.hist, 1), obs=obs)
+
+
 def replay_fleet(tier: FleetTier, requests, *, sizes=None, costs=None,
-                 observe: bool = False, mesh=None, device="cuda",
+                 observe: bool = False, mesh=None, axis: str = "data",
+                 rebalance: int = 256, device="cuda",
                  chunk: int | None = None) -> FleetResult:
     """Replay a dynamic-fleet request stream through ``tier`` on
     ``device``.
@@ -367,13 +465,21 @@ def replay_fleet(tier: FleetTier, requests, *, sizes=None, costs=None,
     (key ``-1`` marks a lane with no tenant that step) or ``[S, T, N]``
     for S independent fleets.  Sizes and costs at idle positions are
     ignored.  ``chunk`` sets the steps per CUDA graph on CUDA (default
-    ``GRAPH_CHUNK``; 0 runs the eager loop).  ``mesh=`` (the reference's
-    lane sharding with a ``psum`` budget re-deal) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "replay_fleet(mesh=...): the sharded fleet is not ported yet "
-            "(ROADMAP A13: multi-GPU)")
+    ``GRAPH_CHUNK``; 0 runs the eager loop).
+
+    With ``mesh=`` (a ``DeviceMesh``; ``[T, N]`` input only, the same on
+    every rank) the lanes split over the mesh's ``axis``: each rank
+    replays its block under a per-shard budget re-dealt every
+    ``rebalance`` steps, and every rank returns the whole fleet's
+    result."""
     reqs, single = _lanes_in(requests, sizes, costs, device, tier.n_lanes,
                              "n_lanes")
+    if mesh is not None:
+        if not single:
+            raise ValueError(
+                "mesh sharding takes a single [T, N] stream; loop over the "
+                "seed axis on the host instead")
+        return _first(_replay_sharded(tier, reqs, observe, chunk, mesh,
+                                      axis, int(rebalance)))
     res = _scan_fleet(tier, reqs, observe, chunk)
     return _first(res) if single else res

@@ -8,7 +8,7 @@ seed; batches come from the stateless token pipeline.  ``--device``
 defaults to ``cuda`` and never falls back to the CPU.  Training runs the
 plain attention, as the reference trains through its jnp attention: kernel
 B2 has no backward.  ``--mesh pod|multipod`` (and a multi-host
-coordinator) wait for the port's mesh (ROADMAP A13).
+coordinator) are sharded training, ROADMAP A13.3.
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh != "none" or os.environ.get("JAX_COORDINATOR"):
-        ap.error("--mesh pod|multipod and multi-host runs need the port's "
-                 "mesh (ROADMAP A13)")
+        ap.error("--mesh pod|multipod and multi-host runs are sharded "
+                 "training, not ported yet (ROADMAP A13.3)")
 
     import torch
 

@@ -1,8 +1,8 @@
 """LM substrate (port of ``models/``): the decoder stack with every layer
 kind of the repo's configurations (attention, MLA, Mamba, mLSTM, sLSTM;
 dense or MoE FFNs) in the reference's configs and parameter layouts, and
-the training loss ``lm_loss``.  Sharding (``models/sharding.py``) is not
-ported yet (ROADMAP A13)."""
+the training loss ``lm_loss``; the sharding rules (``models/sharding.py``),
+with the sharded serve path of the dense-attention configurations."""
 from .config import ArchConfig, LayerSpec, MambaSpec, MoESpec, XLSTMSpec
 from .convert import (params_from_reference, params_to_reference,
                       serve_state_from_reference, serve_state_to_numpy,

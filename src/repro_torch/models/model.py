@@ -20,12 +20,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import mla, moe, ssm
+from . import mla, moe, sharding, ssm
 from .config import ArchConfig, LayerSpec
 from .layers import attn_apply, mlp_apply, rmsnorm
 
 __all__ = ["init_params", "forward", "lm_loss", "param_count", "layer_spec",
-           "ffn", "REMAT_POLICIES"]
+           "ffn", "param_shapes", "REMAT_POLICIES"]
 
 
 class _Leaf(NamedTuple):
@@ -259,36 +259,73 @@ def param_count(cfg: ArchConfig) -> int:
     return cfg.vocab * cfg.d_model + layers + cfg.d_model + head
 
 
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The tree of :func:`init_params` with each leaf's ``_Leaf`` (its
+    ``shape``) in place of a tensor: the sharding rules' input at full
+    shapes, whatever block of them a rank holds."""
+    shapes = {"embed": _Leaf((cfg.vocab, cfg.d_model), None),
+              "layers": [_layer_shapes(cfg, layer_spec(cfg, layer))
+                         for layer in range(cfg.n_layers)],
+              "final_norm": _norm(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = _w((cfg.d_model, cfg.vocab))
+    return shapes
+
+
+def local_view(cfg: ArchConfig, sctx, B: int):
+    """The :class:`~.sharding.Local` view of ``sctx`` for a batch of ``B``
+    sequences of a dense-attention configuration (MoE, MLA and recurrent
+    layers under a mesh are ROADMAP A13.2)."""
+    sharding.check_dense(cfg, "serving")
+    return sharding.Local(sctx, cfg, B,
+                          sharding.param_specs(param_shapes(cfg), cfg, sctx))
+
+
 def layer_spec(cfg: ArchConfig, layer: int) -> LayerSpec:
     return cfg.period[layer % len(cfg.period)]
 
 
-def embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None):
+def embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
+                 loc=None):
+    """The stack's input ``[B, ..., d]``; under a mesh (``loc``, a
+    :class:`~.sharding.Local`) this rank's rows of it."""
     if cfg.embeds_input:
         if embeds is None:
             raise ValueError(f"{cfg.name} takes precomputed embeddings")
-        return embeds.to(cfg.dtype)
-    return params["embed"][tokens]
+        x = embeds.to(cfg.dtype)
+        return x if loc is None else loc.rows(x)
+    if loc is None:
+        return params["embed"][tokens]
+    return loc.embed(params["embed"], tokens)
 
 
-def logits_head(params, cfg: ArchConfig, x):
-    """Final norm, head (tied or not) and final softcap; f32 logits."""
+def logits_head(params, cfg: ArchConfig, x, loc=None):
+    """Final norm, head (tied or not) and final softcap; f32 logits.
+    Under a mesh (``loc``) ``x`` is this rank's rows and the logits are
+    the whole batch's."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if loc is None:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    else:
+        x, head = loc.head(x, params)
     logits = torch.einsum("bsd,dv->bsv", x, head).float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    return logits if loc is None else loc.logits(logits)
 
 
-def ffn(x, p, cfg: ArchConfig):
-    """The layer's FFN with its residual: MoE, dense MLP or none."""
+def ffn(x, p, cfg: ArchConfig, loc=None, layer=None):
+    """The layer's FFN with its residual: MoE, dense MLP or none.  Under a
+    mesh (``loc``) ``p`` is layer ``layer``'s weights from
+    ``loc.layer``."""
     if "moe" in p:
         return x + moe.moe_apply(rmsnorm(x, p["ffn_norm"], cfg.norm_eps),
                                  p["moe"], cfg)
     if "mlp" in p:
-        return x + mlp_apply(rmsnorm(x, p["ffn_norm"], cfg.norm_eps),
-                             p["mlp"], cfg.act)
+        def apply(h):
+            return mlp_apply(h, p["mlp"], cfg.act)
+        h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+        return x + (apply(h) if loc is None else loc.mlp(layer, h, apply))
     return x
 
 
@@ -303,12 +340,16 @@ REMAT_POLICIES = {"none": None, "full": (), "dots": _MM + _BMM,
                   "dots_no_batch": _MM}
 
 
-def _period(x, layers, first, cfg, positions, impl, want_cache):
+def _period(x, layers, first, cfg, positions, impl, want_cache, loc=None):
     """The layers ``first, first + 1, ...`` of the stack (one period): each
-    mixer with its residual, then the FFN's.  Returns ``(x, caches)``."""
+    mixer with its residual, then the FFN's.  Returns ``(x, caches)``.
+    Under a mesh (``loc``) ``x`` and the caches are this rank's rows and
+    heads."""
     caches = []
     for i, p in enumerate(layers):
         spec = layer_spec(cfg, first + i)
+        if loc is not None:
+            p = loc.layer(first + i, p)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         if spec.kind == "attn":
             out = attn_apply(h, p["attn"], cfg, spec, positions, impl=impl,
@@ -322,7 +363,9 @@ def _period(x, layers, first, cfg, positions, impl, want_cache):
         if want_cache:
             out, cache = out
             caches.append(cache)
-        x = ffn(x + out, p, cfg)
+        if loc is not None:
+            out = loc.heads_sum(out)
+        x = ffn(x + out, p, cfg, loc, first + i)
     return x, caches
 
 
@@ -351,7 +394,8 @@ def _remat(fn, remat):
 
 
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
-            impl="kernel", remat="none", want_cache=False, last_only=False):
+            impl="kernel", remat="none", want_cache=False, last_only=False,
+            sctx=None):
     """Run the decoder.
 
     tokens ``[B, S]`` int (or embeds ``[B, S, d]`` for stub-frontend
@@ -363,20 +407,35 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
     plain version (``"plain"``) for attention and MLA; B2 has no backward,
     so a forward that autograd records takes ``"plain"``.  ``remat``
     checkpoints each period's activations for the backward pass (one of
-    ``REMAT_POLICIES``; the default ``"none"`` keeps them)."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    ``REMAT_POLICIES``; the default ``"none"`` keeps them).
+
+    With ``sctx`` (a :class:`~.sharding.ShardCtx`), ``params`` are this
+    rank's blocks of the parameters (``sharding.shard_tree`` under
+    ``param_specs``) and the stack runs sharded over the mesh, the
+    dense-attention configurations only; its caches are this rank's rows
+    and heads.  Sharded training is ROADMAP A13.3."""
+    loc = None
+    if sctx is not None:
+        if remat != "none":
+            raise NotImplementedError(
+                "forward(sctx=..., remat=...): sharded training is not "
+                "ported yet (ROADMAP A13.3)")
+        loc = local_view(cfg, sctx,
+                         (tokens if tokens is not None else embeds).shape[0])
+    x = embed_inputs(params, cfg, tokens, embeds, loc)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     run = _remat(functools.partial(_period, cfg=cfg, positions=positions,
-                                   impl=impl, want_cache=want_cache), remat)
+                                   impl=impl, want_cache=want_cache,
+                                   loc=loc), remat)
     layers, plen, caches = params["layers"], len(cfg.period), []
     for first in range(0, len(layers), plen):
         x, period_caches = run(x, layers[first:first + plen], first)
         caches += period_caches
     if last_only:
         x = x[:, -1:]
-    logits = logits_head(params, cfg, x)
+    logits = logits_head(params, cfg, x, loc)
     return (logits, caches) if want_cache else logits
 
 

@@ -20,6 +20,17 @@ On CUDA tensors the prefill's attention (and MLA's) is kernel B2
 B3 (``kernels.decode_attention``); ``impl="plain"`` runs their plain
 versions instead.
 
+With ``sctx`` (a ``models.sharding.ShardCtx`` over a mesh of ranks),
+:func:`prefill` and :func:`decode_step` run sharded for the
+dense-attention configurations: each rank holds its blocks of the
+parameters and of the state (its batch rows, its KV heads), takes the
+whole batch's tokens and returns the whole batch's logits; B2 and B3 run
+on each rank's heads, and DAC's hit signal sums their per-slot mass over
+the model ranks in a fixed order, so that the control state is the same
+on every model rank (it is kept whole there, not slot-sharded as
+:func:`serve_state_shardings` places it).  MoE, MLA and recurrent layers
+under ``sctx`` raise (ROADMAP A13.2).
+
 The state is ``{"pos": [B] int32, "layers": [one dict per layer]}``.
 Unlike the reference (whose arrays are immutable), :func:`decode_step`
 writes each token's K/V (or latent) into the layer's buffers in place and
@@ -35,11 +46,12 @@ from ..models import mla, ssm
 from ..models.config import ArchConfig
 from ..models.layers import attend_decode, attn_qkv, rmsnorm
 from ..models.model import (embed_inputs, ffn, forward, layer_spec,
-                            logits_head)
+                            local_view, logits_head)
+from ..models.sharding import serve_state_shardings
 from . import kv_cache as kvc
 
 __all__ = ["init_serve_state", "decode_step", "prefill", "bounded_fill",
-           "kv_bytes"]
+           "kv_bytes", "serve_state_shardings"]
 
 # the recurrent layers' state and one-token step, by kind
 RECURRENT = {"mamba": (ssm.mamba_state_init, ssm.mamba_decode_step),
@@ -49,13 +61,14 @@ RECURRENT = {"mamba": (ssm.mamba_state_init, ssm.mamba_decode_step),
 CACHE_KEYS = {"attn": ("k", "v"), "mla": ("latent", "krope")}
 
 
-def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device):
+def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device,
+                 n_kv):
     if kind in RECURRENT:
         return RECURRENT[kind][0](cfg, B, cfg.dtype, device)
     L = budget if budget else max_len
     kw = dict(dtype=cfg.dtype, device=device)
     if kind == "attn":
-        shape = (B, L, cfg.n_kv_heads, cfg.head_dim)
+        shape = (B, L, n_kv, cfg.head_dim)
         st = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
     else:                                                  # mla
         st = {"latent": torch.zeros((B, L, cfg.kv_lora_rank), **kw),
@@ -71,12 +84,18 @@ def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device):
 
 
 def init_serve_state(cfg: ArchConfig, B: int, max_len: int, budget: int = 0,
-                     k0: int | None = None, device="cuda") -> dict:
+                     k0: int | None = None, device="cuda",
+                     sctx=None) -> dict:
     """Fresh serve state.  budget > 0 => bounded DAC pool; ``k0`` starts
-    each sequence's active budget below the full pool."""
+    each sequence's active budget below the full pool.  With ``sctx``,
+    this rank's block of the state of ``B`` sequences."""
+    n_kv = cfg.n_kv_heads
+    if sctx is not None:
+        loc = local_view(cfg, sctx, B)
+        B, n_kv = loc.batch, loc.local_heads(n_kv)
     return {"pos": torch.zeros(B, dtype=torch.int32, device=device),
             "layers": [_layer_state(cfg, layer_spec(cfg, layer).kind, B,
-                                    max_len, budget, k0, device)
+                                    max_len, budget, k0, device, n_kv)
                        for layer in range(cfg.n_layers)]}
 
 
@@ -126,16 +145,21 @@ def _hit(st, ctrl, mass, valid, eps, k_min, kv_caps):
         st["ctrl"] = kvc.resize(ctrl, eps=eps, k_min=k_min, cap=kv_caps)
 
 
-def _decode_attn(h, p, st, cfg, spec, pos, impl, **dac):
+def _decode_attn(h, p, st, cfg, spec, pos, impl, loc=None, **dac):
     """One attention layer's decode.  h ``[B, 1, d]`` (normed); writes the
-    token's K/V into ``st`` in place; returns ``[B, d]``."""
+    token's K/V into ``st`` in place; returns ``[B, d]``.  Under a mesh
+    (``loc``) the rank's rows and heads, the mass and the output summed
+    over the model ranks."""
     q, k, v = attn_qkv(h, p["attn"], cfg, pos[:, None])   # [B, 1, H|Hkv, hd]
     ctrl, valid = _insert(st, ("k", "v"), (k[:, 0], v[:, 0]), pos,
                           spec.window)
     o, mass = attend_decode(q[:, 0], st["k"], st["v"], valid,
                             softcap=cfg.attn_softcap, impl=impl)
-    _hit(st, ctrl, mass, valid, **dac)
-    return torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
+    if loc is None:
+        _hit(st, ctrl, mass, valid, **dac)
+        return torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
+    _hit(st, ctrl, loc.heads_sum(mass), valid, **dac)
+    return loc.heads_sum(torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"]))
 
 
 def _decode_mla(h, p, st, cfg, pos, **dac):
@@ -152,30 +176,40 @@ def _decode_mla(h, p, st, cfg, pos, **dac):
 
 def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
                 eps: float = 0.5, k_min: int = 16, kv_caps=None,
-                impl="kernel"):
+                impl="kernel", sctx=None):
     """One decode step.  token ``[B]`` int (or embed ``[B, d]`` for
     stub-frontend archs).  Returns ``(state, logits [B, V] f32)``; the
     cache buffers and recurrent states of ``state`` are updated in place.
 
     ``kv_caps`` (``[B]`` int32, optional) caps each sequence's bounded-pool
     growth for this step, the same for every attention and MLA layer;
-    ``None`` = uncapped."""
-    pos = state["pos"]
-    x = embed_inputs(params, cfg, token, embed)[:, None]    # [B, 1, d]
+    ``None`` = uncapped.  With ``sctx``, ``params`` and ``state`` are this
+    rank's blocks, ``token`` (or ``embed``) and ``kv_caps`` the whole
+    batch's, and the logits the whole batch's on every rank."""
+    loc = None
+    if sctx is not None:
+        loc = local_view(cfg, sctx,
+                         (token if token is not None else embed).shape[0])
+        if kv_caps is not None:
+            kv_caps = loc.rows(kv_caps)
     dac = dict(eps=eps, k_min=k_min, kv_caps=kv_caps)
+    pos = state["pos"]
+    x = embed_inputs(params, cfg, token, embed, loc)[:, None]   # [B, 1, d]
     for layer, (p, st) in enumerate(zip(params["layers"], state["layers"])):
         spec = layer_spec(cfg, layer)
+        if loc is not None:
+            p = loc.layer(layer, p)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         if spec.kind == "attn":
-            out = _decode_attn(h, p, st, cfg, spec, pos, impl, **dac)
+            out = _decode_attn(h, p, st, cfg, spec, pos, impl, loc, **dac)
         elif spec.kind == "mla":
             out = _decode_mla(h, p, st, cfg, pos, **dac)
         else:
             out, new = RECURRENT[spec.kind][1](h[:, 0], p[spec.kind], cfg,
                                                st)
             st.update(new)
-        x = ffn(x + out[:, None], p, cfg)
-    logits = logits_head(params, cfg, x)[:, 0]
+        x = ffn(x + out[:, None], p, cfg, loc, layer)
+    logits = logits_head(params, cfg, x, loc)[:, 0]
     state["pos"] = pos + 1
     return state, logits
 
@@ -208,18 +242,24 @@ def bounded_fill(ctrl, S: int):
 
 def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
             max_len: int = 0, budget: int = 0, k0: int | None = None,
-            impl="kernel"):
+            impl="kernel", sctx=None):
     """Run the prompt through the stack and build the serve state.
 
     Returns ``(serve_state, last_logits [B, V])``.  ``k0`` (bounded regime
-    only) admits each sequence at an active budget below the full pool."""
+    only) admits each sequence at an active budget below the full pool.
+    With ``sctx``, ``params`` are this rank's blocks, ``tokens`` (or
+    ``embeds``) the whole batch, the state this rank's block and the
+    logits the whole batch's."""
     x = tokens if tokens is not None else embeds
     B, S = x.shape[:2]
     dev = x.device
     max_len = max_len or 2 * S
     logits, caches = forward(params, cfg, tokens=tokens, embeds=embeds,
-                             impl=impl, want_cache=True, last_only=True)
-    state = init_serve_state(cfg, B, max_len, budget, k0, device=dev)
+                             impl=impl, want_cache=True, last_only=True,
+                             sctx=sctx)
+    state = init_serve_state(cfg, B, max_len, budget, k0, device=dev,
+                             sctx=sctx)
+    B = state["pos"].shape[0]
     pooled = [st for st in state["layers"] if "ctrl" in st]
     if pooled:
         ctrl, last = bounded_fill(pooled[0]["ctrl"], S)

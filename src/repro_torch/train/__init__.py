@@ -1,6 +1,6 @@
 """Training (port of ``train/``): the train step, the trainer with
 checkpoints and resume, the straggler watchdog.  The compressed multi-pod
-step waits for the port's mesh (ROADMAP A13)."""
+step is sharded training, ROADMAP A13.3."""
 from .train_step import make_train_step
 from .trainer import StragglerWatchdog, TrainConfig, Trainer
 

@@ -3,8 +3,7 @@ over microbatches, then AdamW.
 
 The reference's multi-pod step with int8 error-feedback gradient
 compression (``make_compressed_train_step``, ``init_ef_state``,
-``train/compression.py``) needs the pod mesh and waits for the port's
-sharding (ROADMAP A13).
+``train/compression.py``) is sharded training, ROADMAP A13.3.
 """
 from __future__ import annotations
 

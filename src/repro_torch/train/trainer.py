@@ -13,7 +13,7 @@ a straggler watchdog, the stateless token pipeline.
 
 The reference's ``restore_into_mesh`` places a checkpoint under the
 current mesh; here the checkpoint is restored onto the trainer's device.
-Sharded training waits for the port's mesh (ROADMAP A13).
+Sharded training is ROADMAP A13.3.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ class Trainer:
                  tcfg: TrainConfig, sctx=None, device="cuda"):
         if sctx is not None:
             raise NotImplementedError(
-                "sharded training needs the port's mesh (ROADMAP A13)")
+                "sharded training is not ported yet (ROADMAP A13.3)")
         self.cfg = arch_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg

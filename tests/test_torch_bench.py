@@ -245,11 +245,17 @@ def test_malformed_payload_is_refused(name):
 
 def test_tier_and_fleet_runners_name_the_roadmap():
     # the tier and fleet runners are ported (ROADMAP A9, A10) and exported;
-    # the fleet's lane sharding still names its item (A13)
+    # so is the fleet's lane sharding (A13.1), whose mesh must be a
+    # DeviceMesh, as run_sweep's must
     from repro_torch.bench import runner
     assert pb.run_tier_sweep is runner.run_tier_sweep
     assert pb.run_fleet_sweep is runner.run_fleet_sweep
     from repro_torch.fleet import FleetTier, replay_fleet
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         replay_fleet(FleetTier("dac(k_min=4)", n_lanes=2, budget=32),
                      np.zeros((8, 2), np.int32), mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        runner.run_sweep(pb.Sweep("m", policies=("lru",), seeds=(0, 1),
+                                  scenarios=(pb.Scenario(
+                                      "z", trace="zipf(N=64,alpha=1.0)",
+                                      T=50, K=(8,)),)), mesh=object())

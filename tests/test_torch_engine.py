@@ -164,11 +164,11 @@ def test_engine_without_cuda_raises(monkeypatch):
 
 
 def test_unported_policy_names_the_roadmap():
-    # admission is ported (ROADMAP A8); what the engine still lacks, the
-    # sharded fleet, names its ROADMAP item
+    # admission is ported (ROADMAP A8) and so is the sharded fleet (A13.1):
+    # a mesh passes through Engine.replay_fleet and must be a DeviceMesh
     assert make_policy("admit(dac,filter=tinylfu)").name == "admit"
     from repro_torch.fleet import FleetTier
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(device="cpu").replay_fleet(
             FleetTier("dac(k_min=4)", n_lanes=2, budget=32),
             np.zeros((8, 2), np.int32), mesh=object())

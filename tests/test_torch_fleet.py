@@ -11,8 +11,8 @@ float32 reciprocal, as XLA compiles them), so no tolerance is needed.
 ``run_fleet_sweep`` records equal the reference's, the penalty buckets
 equal the reference's next to every power of two, and the graph loop's
 bookkeeping holds for the fleet's nested carry.  Then the single-device
-laws of ``tests/test_fleet.py`` on the port (its sharded law waits for
-ROADMAP A13; ``mesh=`` raises naming it).
+laws of ``tests/test_fleet.py`` on the port (its sharded law is
+``tests/test_torch_sharded_fleet.py``; here ``mesh=``'s argument checks).
 """
 import functools
 
@@ -210,9 +210,15 @@ def test_window_records_equal_reference():
 
 
 def test_mesh_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        replay_fleet(FleetTier("dac(k_min=4)", n_lanes=8, budget=96),
-                     _trace(T=50), mesh=object(), device="cpu")
+    # the sharded fleet is ported (ROADMAP A13.1; its law against the
+    # reference's is tests/test_torch_sharded_fleet.py): a mesh must be a
+    # DeviceMesh, and takes one [T, N] stream
+    fl = FleetTier("dac(k_min=4)", n_lanes=8, budget=96)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        replay_fleet(fl, _trace(T=50), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="single"):
+        replay_fleet(fl, np.stack([_trace(T=50)] * 2), mesh=object(),
+                     device="cpu")
 
 
 # ---------------------------------------------------------------------------

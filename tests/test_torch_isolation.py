@@ -52,6 +52,9 @@ def test_port_modules_import_without_jax_or_reference():
             "repro_torch.checkpoint.manager", "repro_torch.train",
             "repro_torch.train.train_step", "repro_torch.train.trainer",
             "repro_torch.launch.train"} <= set(MODULES)
+    # and the multi-GPU slice's
+    assert {"repro_torch.launch.mesh",
+            "repro_torch.models.sharding"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("entry", ["repro_torch.launch.train",
