@@ -185,6 +185,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3392,6 +3393,20 @@ MG_FLEET_REBALANCE = (200, 256)
 MG_SERVE_LAYERS, MG_SERVE_B, MG_SERVE_S = 4, 8, 512
 MG_SERVE_STEPS, MG_SERVE_BUDGET = 16, 512
 MG_F32_LAYERS, MG_F32_S, MG_F32_STEPS = 2, 256, 8
+# the MoE, MLA and recurrent models on (data 2, model 2), full width, depth
+# cut: deepseek-v2-236b's first 2 of 60 layers (MLA + MoE, 80 of its 160
+# experts a model rank), jamba-1.5-large-398b's first 5 of 72 (Mamba, MoE
+# and the attention layer at index 4), xlstm-125m whole; bf16, B = 8 x
+# MG_SERVE_S, MG_ARCH_STEPS decode steps in both regimes; then each at 2
+# layers in f32 (B = 8 x MG_F32_S, MG_ARCH_STEPS steps) against the
+# unsharded port on rank 0.  4 steps, not 8: at 8 the three took 42 s of
+# a 30 s target (PERF.md, PR 21)
+MG_ARCHS = (("deepseek-v2-236b", 2), ("jamba-1.5-large-398b", 5),
+            ("xlstm-125m", 12))
+MG_ARCH_STEPS = 4
+# a recurrent state leaf, sharded against unsharded: max |diff| within
+# MG_STATE_TOL x max(1, max |unsharded|)
+MG_STATE_TOL = 1e-4
 
 
 def _sync(dev):
@@ -3588,9 +3603,9 @@ def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
     """Prefill ``toks[:, :S]`` and ``steps`` teacher-forced decode steps:
     logits, the pooled layers' control state after each step (under a
     mesh its rows gathered over ``data``), prefill seconds and decode ms a
-    step (host clock, each ending in a synchronise).  ``margins`` gets
-    each step's least top-2 mass margin (under a mesh, the least over the
-    ``data`` ranks)."""
+    step (host clock, each ending in a synchronise), and the state after
+    the last step.  ``margins`` gets each step's least top-2 mass margin
+    (under a mesh, the least over the ``data`` ranks)."""
     import torch
     from repro_torch.launch import mesh as M
     from repro_torch.serving import decode_step, prefill
@@ -3613,7 +3628,7 @@ def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
             ctrls.append([{k: x.clone() if sctx is None else
                            M.cat(x, sctx.mesh, ("data",))
                            for k, x in st["ctrl"].items()}
-                          for st in state["layers"]])
+                          for st in state["layers"] if "ctrl" in st])
         if margins is not None and sctx is not None:
             least = torch.tensor([min(margins[-1], default=float("inf"))])
             margins[-1] = [float(torch.cat(M.gather(least, sctx.mesh,
@@ -3621,7 +3636,7 @@ def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
     _sync(dev)
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     return {"logits": logs, "ctrl": ctrls, "prefill_s": prefill_s,
-            "step_ms": step_ms}
+            "step_ms": step_ms, "state": state}
 
 
 def mg_serve(dev, mesh):
@@ -3755,6 +3770,203 @@ def mg_compare(got, want, margins, budget, what):
     return row
 
 
+class MgRouting:
+    """Records every MoE routing (the experts chosen) and dispatch (the
+    choices kept), on the host, while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+        self.route, self.dispatch = moe.route, moe.dispatch
+
+        def route(*a, **k):
+            out = self.route(*a, **k)
+            self.calls.append(out[0].cpu())
+            return out
+
+        def dispatch(*a, **k):
+            out = self.dispatch(*a, **k)
+            self.calls.append(out[1].cpu())
+            return out
+
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.route, self.dispatch
+
+
+# the channel dimension of a split recurrent state leaf, by layer kind
+MG_CHANNEL_DIM = {"mamba": {"conv": 2, "h": 1},
+                  "mlstm": {"conv": 2, "C": 1, "n": 1, "m": 1}}
+
+
+def mg_whole_states(loc, state):
+    """Every recurrent layer's state of this rank gathered over its channel
+    blocks and the batch, on the host (a collective on every rank)."""
+    out = {}
+    for layer, st in enumerate(state["layers"]):
+        kind = loc.kinds[layer]
+        if kind in ("attn", "mla"):
+            continue
+        c = loc.chan[layer]
+        rest = tuple(a for a in loc.b_axes if a not in c)
+        for k, x in st.items():
+            dim = MG_CHANNEL_DIM.get(kind, {}).get(k)
+            if dim is not None and c:
+                x = loc.cat(x, c, dim)
+            out[f"{layer}.{k}"] = (loc.cat(x, rest) if rest else x).cpu()
+    return out
+
+
+def mg_arch_f32(dev, sctx, name):
+    """``name`` at MG_F32_LAYERS layers in f32, B = 8 x MG_F32_S and
+    MG_ARCH_STEPS steps, on the mesh against the unsharded port on rank 0
+    (which builds and runs it alone first, then frees it, so that the
+    card holds one whole model at a time): logits within SERVE_LOGIT_TOL,
+    DAC's control equal unless a near-tie explains it, every MoE routing
+    and drop equal, the recurrent states within MG_STATE_TOL; the sharded
+    logits' digest (every rank's must be rank 0's)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.models.model import local_view
+    from repro_torch.serving import serve_step as ss
+    cfg = dataclasses.replace(ARCHS[name], n_layers=MG_F32_LAYERS,
+                              param_dtype="float32")
+    toks = prompt_tokens(cfg, MG_SERVE_B, MG_F32_S + MG_ARCH_STEPS, dev,
+                         n=17)
+    rank = torch.distributed.get_rank()
+    regimes = (("unbounded", 0), ("bounded", MG_SERVE_BUDGET))
+    top_slot, margins, wants = ss._top_slot, [], {}
+    t0 = time.perf_counter()
+
+    def recording_top(mass, valid):
+        if margins:
+            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+            margins[-1].append(float((top2[:, 0] - top2[:, 1]).min()))
+        return top_slot(mass, valid)
+
+    if rank == 0:
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+        ss._top_slot = recording_top
+        try:
+            for regime, budget in regimes:
+                del margins[:]
+                with MgRouting() as routing:
+                    run = mg_serve_run(full, cfg, None, toks, MG_F32_S,
+                                       MG_ARCH_STEPS, budget, margins=margins)
+                states = {f"{i}.{k}": x.cpu()
+                          for i, st in enumerate(run["state"]["layers"])
+                          if cfg.period[i % len(cfg.period)].kind
+                          not in ("attn", "mla") for k, x in st.items()}
+                run["state"] = None
+                wants[regime] = (run, routing.calls, states,
+                                 [min(m, default=float("inf"))
+                                  for m in margins])
+        finally:
+            ss._top_slot = top_slot
+        del full, run
+        _empty(dev)
+    torch.distributed.barrier()
+    rows = {"unsharded_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    local = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, sctx=sctx)
+    _empty(dev)                         # the draws' slices
+    _sync(dev)
+    rows["build_s"] = time.perf_counter() - t0
+    loc = local_view(cfg, sctx, MG_SERVE_B)
+    for regime, budget in regimes:
+        with MgRouting() as routing:
+            got = mg_serve_run(local, cfg, sctx, toks, MG_F32_S,
+                               MG_ARCH_STEPS, budget)
+        states = mg_whole_states(loc, got["state"])
+        got["state"] = None
+        row = {"digest": _digest({str(i): x.cpu().numpy() for i, x in
+                                  enumerate(got["logits"])})}
+        if rank == 0:
+            want, calls, want_states, least = wants[regime]
+            row.update(mg_compare(got, want, least, budget,
+                                  f"{name} f32 {regime} vs unsharded"))
+            if len(calls) != len(routing.calls) or not all(
+                    torch.equal(a, b) for a, b in zip(calls, routing.calls)):
+                raise Mismatch(f"{name} f32 {regime}: MoE routing or drops "
+                               "differ from the unsharded port's")
+            row["moe_routings_equal"] = len(calls) // 2
+            err = 0.0
+            for k, w in want_states.items():
+                e = float((states[k] - w).abs().max())
+                if e > MG_STATE_TOL * max(1.0, float(w.abs().max())):
+                    raise Mismatch(f"{name} f32 {regime}: state {k} differs "
+                                   f"by {e}")
+                err = max(err, e)
+            row.update(state_max_abs_err=err, states=len(want_states),
+                       state_tol=MG_STATE_TOL)
+        rows[regime] = row
+    del local, got
+    _empty(dev)
+    torch.distributed.barrier()
+    rows["s"] = rows["unsharded_s"] + time.perf_counter() - t0
+    return rows
+
+
+def mg_serve_archs(dev, mesh):
+    """MG_ARCHS on the (data 2, model 2) mesh: each rank builds only its
+    blocks (``init_params(sctx=)``); bf16 in both regimes (timed, B2/B3
+    counted on each rank), then the f32 check (``mg_arch_f32``).  Each
+    model is freed before the next is built."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params
+    sctx = M.shard_ctx(mesh, mode="serve")
+    out = {}
+    for name, layers in MG_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], n_layers=layers)
+        kinds = [cfg.period[i % len(cfg.period)].kind for i in range(layers)]
+        attend = sum(k in ("attn", "mla") for k in kinds)
+        want = (attend, kinds.count("attn") * MG_ARCH_STEPS)
+        local = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev, sctx=sctx)
+        _empty(dev)                     # the draws' slices
+        _sync(dev)
+        row = {"layers": layers, "build_s": time.perf_counter() - t0,
+               "b2_launches": 0, "b3_launches": 0}
+        toks = prompt_tokens(cfg, MG_SERVE_B, MG_SERVE_S + MG_ARCH_STEPS, dev,
+                             n=18)
+        for regime, budget in (("unbounded", 0), ("bounded",
+                                                  MG_SERVE_BUDGET)):
+            fa.LAUNCHES = da.LAUNCHES = 0
+            run = mg_serve_run(local, cfg, sctx, toks, MG_SERVE_S,
+                               MG_ARCH_STEPS, budget)
+            launches = (fa.LAUNCHES, da.LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"sharded {name} {regime}: B2/B3 "
+                                     f"launches {launches}, expected {want}")
+            if not all(bool(torch.isfinite(x).all()) for x in run["logits"]):
+                raise AssertionError(f"sharded {name} {regime}: logits not "
+                                     "finite")
+            row["b2_launches"] += launches[0]
+            row["b3_launches"] += launches[1]
+            row[regime] = {"prefill_s": run["prefill_s"],
+                           "step_ms": run["step_ms"],
+                           "logits_shape": list(run["logits"][-1].shape)}
+            del run
+        del local
+        _empty(dev)
+        row["f32"] = mg_arch_f32(dev, sctx, name)
+        row["s"] = time.perf_counter() - t0
+        out[name] = row
+    return out
+
+
 def mg_probe_gloo(dev):
     """Whether gloo's ``all_gather`` takes a tensor on ``dev`` (the one
     collective the port uses; the gloo ranks on the card rely on it)."""
@@ -3783,7 +3995,7 @@ def mg_world_b(dev, go):
     ``Engine(mesh=)`` at MG_LANES lanes, a small ``run_sweep(mesh=)``
     grid (rank 0 against the unsharded run on the card, every rank's
     result against rank 0's), and sharded serving on a (data 2, model 2)
-    mesh."""
+    mesh: deepseek-7b, then MG_ARCHS."""
     import torch
     from repro_torch.bench import Scenario, Sweep, run_sweep
     from repro_torch.core import Engine
@@ -3839,7 +4051,12 @@ def mg_world_b(dev, go):
                            "unsharded grid's")
     out["sweep_cells"] = len(got.records)
     out["sweep_s"] = got.wall_s
-    out["serve"] = mg_serve(dev, M.make_test_mesh(2, 2))
+    mesh = M.make_test_mesh(2, 2)
+    out["serve"] = mg_serve(dev, mesh)
+    archs = mg_serve_archs(dev, mesh)
+    for k in ("b2_launches", "b3_launches"):
+        out["serve"][k] += sum(row[k] for row in archs.values())
+    out["serve"]["archs"] = archs
     return out
 
 
@@ -3857,6 +4074,10 @@ def phase_multi_gpu(dev, tmp):
     _empty(dev)
     tmp = Path(tmp)
     res = {"phase": "multi_gpu"}
+    # four ranks share the card's 80 GB: the spawned ranks' allocators
+    # grow segments instead of caching fixed blocks of freed models
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     go = tmp / "b-go"
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         b = pool.submit(M.launch_world, mg_world_b, MG_WORLD, (dev, str(go)),
@@ -3899,6 +4120,12 @@ def phase_multi_gpu(dev, tmp):
             if row["digest"] != b[0]["serve"]["f32"][regime]["digest"]:
                 raise Mismatch(f"(b) rank {r} f32 {regime}: logits not "
                                "rank 0's")
+        for name, arch in out["serve"]["archs"].items():
+            for regime in ("unbounded", "bounded"):
+                if arch["f32"][regime]["digest"] != \
+                        b[0]["serve"]["archs"][name]["f32"][regime]["digest"]:
+                    raise Mismatch(f"(b) rank {r} {name} f32 {regime}: "
+                                   "logits not rank 0's")
     cases = mg_fleet_cases(dev)
     for name, tier, reqs, rebalance in cases:
         want = mg_fleet_launches(reqs.key.shape[0], rebalance, GRAPH_CHUNK)
@@ -3932,6 +4159,26 @@ def phase_multi_gpu(dev, tmp):
             del row["digest"]
         for row in out["serve"]["f32"].values():
             del row["digest"]
+        for arch in out["serve"]["archs"].values():
+            for regime in ("unbounded", "bounded"):
+                del arch["f32"][regime]["digest"]
+    # the summary of the MoE, MLA and recurrent models: over the ranks
+    archs = {}
+    for name, _ in MG_ARCHS:
+        rows = [out["serve"]["archs"][name] for out in b]
+        archs[name] = {
+            "layers": rows[0]["layers"],
+            **{f"{regime}_{k}": [r[regime][k] for r in rows]
+               for regime in ("unbounded", "bounded")
+               for k in ("prefill_s", "step_ms")},
+            "b2_launches_a_rank": [r["b2_launches"] for r in rows],
+            "b3_launches_a_rank": [r["b3_launches"] for r in rows],
+            "f32_logits_max_abs_err": max(
+                rows[0]["f32"][regime]["logits_max_abs_err"]
+                for regime in ("unbounded", "bounded")),
+            "f32": rows[0]["f32"], "s": [r["s"] for r in rows]}
+    for out in b:
+        del out["serve"]["archs"]
     serve = [out["serve"] for out in b]
     a["fleet"] = {k: {f: v[f] for f in ("s", "T", "b1_launches", "redeals")}
                   for k, v in a["fleet"].items()}
@@ -3945,7 +4192,7 @@ def phase_multi_gpu(dev, tmp):
                           "s": [out["sweep_s"] for out in b],
                           "b1_launches": [out["sweep_launches"]
                                           for out in b]},
-                "serve": serve}
+                "serve": serve, "serve_archs": archs}
     # the CPU world's seconds: launch to result, the time it ran on after
     # (a) (holding (b) back), and each rank's fleets
     res["cpu_world"] = {"world": MG_WORLD, "s": cpu_s,
@@ -3959,6 +4206,10 @@ def phase_multi_gpu(dev, tmp):
                              f"{launches}")
     res["launches"] = launches
     res["s"] = time.perf_counter() - t_phase
+    if alloc is None:
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    else:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     return res, launches
 
 

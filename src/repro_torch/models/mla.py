@@ -15,6 +15,11 @@ where the reference runs ``chunked_attention``.  The absorbed decode
 (:func:`mla_attend`) is plain torch, as the reference's is jnp: as one
 attention it is H query heads over a single shared head of D = r + dr and
 Dv = r, past what kernel B3 takes (D, Dv <= 256).
+
+Both run on the heads of the weights they are given: under a mesh a
+rank's block of ``w_q``/``w_qb``, ``w_kvb`` and ``wo`` (heads over
+``model``), with the latent and ``k_rope`` whole.  The caller sums the
+output projection and the per-slot mass over the model ranks.
 """
 from __future__ import annotations
 
@@ -58,9 +63,9 @@ def mla_apply(x, p, cfg, positions, impl="kernel", want_cache=False):
     ``[q_nope | q_rope]``.  Returns the block's output and, with
     ``want_cache``, ``{"latent" [B, S, r], "krope" [B, S, dr]}``."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope = _queries(x, p, cfg, positions)
+    H = q_nope.shape[2]                     # the heads of p (a rank's own)
     latent, k_rope = mla_latent(x, p, cfg, positions)
     kvb = torch.einsum("bsr,rhk->bshk", latent, p["w_kvb"])
     k_nope, v = kvb[..., :dn], kvb[..., dn:]

@@ -30,18 +30,19 @@ __all__ = ["init_params", "forward", "lm_loss", "param_count", "layer_spec",
 
 class _Leaf(NamedTuple):
     """One parameter: its shape, its init ``(shape, dtype, generator,
-    device) -> tensor`` and its dtype (None: the model's)."""
+    device) -> tensor``, its dtype (None: the model's) and, for a normal
+    draw, its standard deviation (then ``init`` is unused)."""
     shape: tuple
-    init: Callable
+    init: Callable | None
     dtype: torch.dtype | None = None
+    std: float | None = None
 
 
 def _w(shape, fan_in=None, dtype=None):
     """A projection: normal / sqrt(fan_in), the fan in ``shape[0]`` unless
     given (the reference's ``dense_init``)."""
-    std = 1.0 / math.sqrt(fan_in or shape[0])
-    return _Leaf(tuple(shape),
-                 lambda sh, dt, g, dev: _normal(sh, std, dt, g, dev), dtype)
+    return _Leaf(tuple(shape), None, dtype,
+                 1.0 / math.sqrt(fan_in or shape[0]))
 
 
 def _full(value, *shape, dtype=None):
@@ -186,34 +187,50 @@ def _layer_shapes(cfg: ArchConfig, spec: LayerSpec):
 _DRAW_SLICE = 1 << 29
 
 
-def _normal(shape, std, dtype, generator, device):
+def _normal(shape, std, dtype, generator, device, cut=None):
     """normal * std, drawn in f32 and cast: in one draw up to
-    ``_DRAW_SLICE`` elements, else one draw per run of leading rows."""
+    ``_DRAW_SLICE`` elements, else one draw per run of leading rows.
+    With ``cut`` (a ``sharding.Cut``) only that block of it is kept, cut
+    from each draw."""
+    def draw(sh):
+        return torch.randn(sh, generator=generator, dtype=torch.float32,
+                           device=device).mul_(std)
+
     n = math.prod(shape)
     if n <= _DRAW_SLICE:
-        x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
+        x = draw(shape)
+        return (x if cut is None else cut(x)).to(dtype).contiguous()
+    out = torch.empty(shape if cut is None else cut.shape, dtype=dtype,
+                      device=device)
+    first, count = (0, shape[0]) if cut is None else cut.rows
     rows = max(1, _DRAW_SLICE // (n // shape[0]))
     for r0 in range(0, shape[0], rows):
-        out[r0:r0 + rows] = _normal((min(rows, shape[0] - r0),) + shape[1:],
-                                    std, dtype, generator, device)
+        r1 = min(r0 + rows, shape[0])
+        x = draw((r1 - r0,) + shape[1:])
+        lo, hi = max(r0, first), min(r1, first + count)
+        if lo < hi:
+            x = x[lo - r0:hi - r0]
+            out[lo - first:hi - first] = x if cut is None else cut.inner(x)
+        del x
     return out
 
 
-def _make(leaf: _Leaf, dt, generator, device):
-    return leaf.init(leaf.shape, leaf.dtype or dt, generator, device)
+def _make(leaf: _Leaf, dt, generator, device, cut=None):
+    dt = leaf.dtype or dt
+    if leaf.std is not None:
+        return _normal(leaf.shape, leaf.std, dt, generator, device, cut)
+    x = leaf.init(leaf.shape, dt, generator, device)
+    return x if cut is None else cut(x).contiguous()
 
 
-def _build(tree, fn):
+def _build(tree, fn, keys=()):
     if isinstance(tree, dict):
-        return {k: _build(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _build(v, fn, keys + (k,)) for k, v in tree.items()}
+    return fn(tree, keys)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
-                device="cuda") -> dict:
+                device="cuda", sctx=None) -> dict:
     """Random parameters from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 when omitted), built on ``device``.  The scheme is
     the reference's (normal / sqrt(fan_in) for projections, 0.02 for the
@@ -222,22 +239,35 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     tests carry the reference's weights across with
     ``convert.params_from_reference`` instead.  The generator draws the
     embedding, then each layer's leaves in ``_layer_shapes`` order, then
-    the head; a leaf past ``_DRAW_SLICE`` elements in slices of rows."""
+    the head; a leaf past ``_DRAW_SLICE`` elements in slices of rows.
+
+    With ``sctx`` (a :class:`~.sharding.ShardCtx` over a ``DeviceMesh``),
+    this rank's blocks under ``param_specs``: what ``sharding.shard_tree``
+    cuts from the whole model, built without it (each leaf drawn as for
+    the whole model, slice by slice, and the rank's block kept)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = cfg.dtype
+    shapes = param_shapes(cfg)
+    specs = (None if sctx is None
+             else sharding.param_specs(shapes, cfg, sctx))
 
-    def make(leaf):
-        return _make(leaf, dt, generator, device)
+    def make(leaf, keys):
+        cut = None
+        if specs is not None:
+            spec = specs
+            for k in keys:
+                spec = spec[k]
+            cut = sharding.Cut(spec, leaf.shape, sctx.mesh, keys[-1])
+        return _make(leaf, dt, generator, device, cut)
 
-    params = {"embed": _normal((cfg.vocab, cfg.d_model), 0.02, dt, generator,
-                               device)}
-    params["layers"] = [_build(_layer_shapes(cfg, layer_spec(cfg, layer)),
-                               make) for layer in range(cfg.n_layers)]
-    params["final_norm"] = {"scale": torch.zeros(cfg.d_model, dtype=dt,
-                                                 device=device)}
+    params = {"embed": make(shapes["embed"], ("embed",))}
+    params["layers"] = [_build(layer, make, ("layers", i))
+                        for i, layer in enumerate(shapes["layers"])]
+    params["final_norm"] = _build(shapes["final_norm"], make,
+                                  ("final_norm",))
     if not cfg.tie_embeddings:
-        params["lm_head"] = make(_w((cfg.d_model, cfg.vocab)))
+        params["lm_head"] = make(shapes["lm_head"], ("lm_head",))
     return params
 
 
@@ -263,7 +293,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
     """The tree of :func:`init_params` with each leaf's ``_Leaf`` (its
     ``shape``) in place of a tensor: the sharding rules' input at full
     shapes, whatever block of them a rank holds."""
-    shapes = {"embed": _Leaf((cfg.vocab, cfg.d_model), None),
+    shapes = {"embed": _Leaf((cfg.vocab, cfg.d_model), None, None, 0.02),
               "layers": [_layer_shapes(cfg, layer_spec(cfg, layer))
                          for layer in range(cfg.n_layers)],
               "final_norm": _norm(cfg.d_model)}
@@ -274,9 +304,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
 
 def local_view(cfg: ArchConfig, sctx, B: int):
     """The :class:`~.sharding.Local` view of ``sctx`` for a batch of ``B``
-    sequences of a dense-attention configuration (MoE, MLA and recurrent
-    layers under a mesh are ROADMAP A13.2)."""
-    sharding.check_dense(cfg, "serving")
+    sequences."""
     return sharding.Local(sctx, cfg, B,
                           sharding.param_specs(param_shapes(cfg), cfg, sctx))
 
@@ -320,12 +348,13 @@ def ffn(x, p, cfg: ArchConfig, loc=None, layer=None):
     ``loc.layer``."""
     if "moe" in p:
         return x + moe.moe_apply(rmsnorm(x, p["ffn_norm"], cfg.norm_eps),
-                                 p["moe"], cfg)
+                                 p["moe"], cfg, loc, layer)
     if "mlp" in p:
         def apply(h):
             return mlp_apply(h, p["mlp"], cfg.act)
         h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        return x + (apply(h) if loc is None else loc.mlp(layer, h, apply))
+        return x + (apply(h) if loc is None
+                    else loc.mlp(loc.ff_axes[layer], h, apply))
     return x
 
 
@@ -343,14 +372,16 @@ REMAT_POLICIES = {"none": None, "full": (), "dots": _MM + _BMM,
 def _period(x, layers, first, cfg, positions, impl, want_cache, loc=None):
     """The layers ``first, first + 1, ...`` of the stack (one period): each
     mixer with its residual, then the FFN's.  Returns ``(x, caches)``.
-    Under a mesh (``loc``) ``x`` and the caches are this rank's rows and
-    heads."""
+    Under a mesh (``loc``) ``x`` is this rank's rows, and the caches and
+    states are its blocks (``loc.mixer_in``'s rows)."""
     caches = []
     for i, p in enumerate(layers):
-        spec = layer_spec(cfg, first + i)
+        spec, ch = layer_spec(cfg, first + i), None
         if loc is not None:
-            p = loc.layer(first + i, p)
+            p, ch = loc.layer(first + i, p), loc.channels(first + i)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        if loc is not None:
+            h = loc.mixer_in(first + i, h)
         if spec.kind == "attn":
             out = attn_apply(h, p["attn"], cfg, spec, positions, impl=impl,
                              want_cache=want_cache)
@@ -359,12 +390,12 @@ def _period(x, layers, first, cfg, positions, impl, want_cache, loc=None):
                                 want_cache=want_cache)
         else:
             out = _RECURRENT_APPLY[spec.kind](h, p[spec.kind], cfg,
-                                              return_state=want_cache)
+                                              return_state=want_cache, ch=ch)
         if want_cache:
             out, cache = out
             caches.append(cache)
         if loc is not None:
-            out = loc.heads_sum(out)
+            out = loc.mixer_out(first + i, out)
         x = ffn(x + out, p, cfg, loc, first + i)
     return x, caches
 
@@ -411,9 +442,9 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
 
     With ``sctx`` (a :class:`~.sharding.ShardCtx`), ``params`` are this
     rank's blocks of the parameters (``sharding.shard_tree`` under
-    ``param_specs``) and the stack runs sharded over the mesh, the
-    dense-attention configurations only; its caches are this rank's rows
-    and heads.  Sharded training is ROADMAP A13.3."""
+    ``param_specs``) and the stack runs sharded over the mesh; its caches
+    and states are this rank's blocks.  Sharded training is ROADMAP
+    A13.3."""
     loc = None
     if sctx is not None:
         if remat != "none":

@@ -23,13 +23,22 @@ JAX's compiler turns placements into collectives; here the sharded serve
 path (:mod:`.model`'s ``forward``, ``serving.serve_step``) runs the same
 layer code on each rank's blocks, and a :class:`Local` view places the
 blocks and adds the collectives around it: the batch over ``(pod,)
-data``; attention heads over ``model`` (kernels B2 and B3 run on each
-rank's local heads, the output projection summed over ``model``); the
+data``; attention and MLA heads over ``model`` (kernels B2 and B3 run on
+each rank's local heads, the output projection summed over ``model``); the
 MLP's width and the vocabulary over the axes their placement names (the
 activations gathered over the batch axes among them, the partial outputs
-summed, the logits concatenated); any other split dimension, such as
-FSDP's, gathered before use.  Sums over ranks add in a fixed order, so
-every rank of an axis holds the same values bit for bit.
+summed, the logits concatenated); MoE experts over the axes of their
+placement and their width over the rest, with the whole batch as the
+dispatch groups; a recurrent layer's channels over the axes of its input
+projection's placement (:class:`Channels`); any other split dimension,
+such as FSDP's, gathered before use.  Sums over ranks add in a fixed
+order, so every rank of an axis holds the same values bit for bit.
+
+A projection whose output is several components side by side (``PARTS``:
+Mamba's ``in_proj`` ``[x | z]``, mLSTM's ``up_proj``, sLSTM's gates ``W``)
+splits each component over the axes its placement names, so that a
+rank's block is a block of channels; GSPMD's contiguous block of the flat
+dimension means the same values, laid out otherwise.
 """
 from __future__ import annotations
 
@@ -40,7 +49,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 __all__ = ["ShardCtx", "AbstractMesh", "mesh_shape", "param_specs",
-           "serve_state_shardings", "shard_tree", "Local"]
+           "serve_state_shardings", "shard_tree", "Cut", "Local", "Channels"]
+
+# projections whose last dimension holds this many components side by side
+PARTS = {"in_proj": 2, "up_proj": 2, "W": 4}
 
 
 class AbstractMesh:
@@ -259,10 +271,23 @@ def serve_state_shardings(cfg, sctx: ShardCtx, state):
     divisible, else slots over model; recurrent inner dims over model;
     DAC control rows ``[B, Bmax]`` slot-sharded over model.
 
-    The sharded serve path keeps the control rows whole on every model
-    rank instead (they are tiny, and DAC's control must agree across the
-    model ranks that attend over one pool), and a cache whose KV heads do
-    not divide the model axis whole on every model rank."""
+    These are the reference's tables (``tests/test_torch_mesh.py`` holds
+    them equal).  The sharded serve path (:class:`Local`) places some
+    leaves otherwise:
+
+    * DAC's control rows whole on every model rank (they are tiny, and
+      DAC's control must agree across the model ranks that attend over
+      one pool), the batch over the batch axes;
+    * a KV cache whose heads do not divide ``model``, and MLA's
+      ``latent``/``krope``, whole on every model rank (each model rank
+      attends over every slot with its heads), the batch over the batch
+      axes;
+    * Mamba's ``conv``/``h`` and mLSTM's ``conv``/``C``/``n``/``m``: the
+      channels (heads) over the layer's channel axes, those of its input
+      projection's placement (serve mode: ``(model, data)``), and the
+      batch over the batch axes outside them (serve mode: whole);
+    * sLSTM's cell state whole on every model rank (the cell is not
+      split), the batch over the batch axes."""
     tp_n = sctx.axis_size(sctx.tp)
 
     def b_axes(B):
@@ -328,35 +353,74 @@ def _index(mesh, axes) -> Tuple[int, int]:
     return idx, n
 
 
-def _block(x, dim, mesh, axes):
-    """This rank's block of ``x`` along ``dim`` split over ``axes``."""
+def _block(x, dim, mesh, axes, parts=1):
+    """This rank's block of ``x`` along ``dim`` split over ``axes``; a
+    dimension of ``parts`` components side by side splits each."""
     idx, n = _index(mesh, axes)
     if n == 1:
         return x
+    dim %= x.dim()
     size = x.shape[dim]
-    if size % n:
+    if size % (n * parts):
         raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
-                         f"split over {axes} ({n} ranks)")
+                         f"split over {axes} ({n} ranks, {parts} parts)")
+    if parts > 1:
+        x = x.unflatten(dim, (parts, size // parts))
+        return _block(x, dim + 1, mesh, axes).flatten(dim, dim + 1)
     return x.narrow(dim, idx * (size // n), size // n)
+
+
+def _parts(name, dim, ndim):
+    """The components of dimension ``dim`` of leaf ``name``."""
+    return PARTS.get(name, 1) if dim == ndim - 1 else 1
 
 
 def shard_tree(tree, specs, mesh):
     """This rank's blocks of the full tensors of ``tree`` under
     ``specs`` (a tree of placements of the same structure), as new
     contiguous tensors."""
-    def leaf(keys, x, spec):
-        for dim, entry in enumerate(spec):
-            x = _block(x, dim, mesh, _axes(entry))
-        return x.contiguous()
-
     def walk(t, s, keys=()):
         if isinstance(t, dict):
             return {k: walk(t[k], s[k], keys + (k,)) for k in t}
         if isinstance(t, list):
             return [walk(a, b, keys) for a, b in zip(t, s)]
-        return leaf(keys, t, s)
+        return Cut(s, tuple(t.shape), mesh, keys[-1])(t).contiguous()
 
     return walk(tree, specs)
+
+
+class Cut:
+    """This rank's block of a leaf of full shape ``shape`` named ``name``
+    under placement ``spec``: :meth:`__call__` cuts it from the whole
+    leaf, :meth:`inner` from a slice of its rows (``rows``: the block's
+    first row and row count), so that a rank can build its block from
+    the whole leaf's draws slice by slice (``models.init_params``).  The
+    cuts are views where the layout allows."""
+
+    def __init__(self, spec, shape, mesh, name=""):
+        self.spec, self.mesh = spec, mesh
+        idx, n = _index(mesh, _axes(spec[0]))
+        self.rows = (idx * (shape[0] // n), shape[0] // n)
+        nd = len(shape)
+        self.shape = tuple(
+            size // _index(mesh, _axes(e))[1] for size, e in zip(shape, spec))
+        self._parts = [_parts(name, d, nd) for d in range(nd)]
+
+    def inner(self, x):
+        """The block's columns (every dimension but the first) of rows
+        of the leaf."""
+        for dim, entry in enumerate(self.spec[1:], 1):
+            x = _block(x, dim, self.mesh, _axes(entry), self._parts[dim])
+        return x
+
+    def __call__(self, x):
+        x = _block(x, 0, self.mesh, _axes(self.spec[0]), self._parts[0])
+        return self.inner(x)
+
+
+def _mlp_want(f):
+    """A dense gated MLP's layout with its width over ``f``."""
+    return {"w_gate": ((), f), "w_up": ((), f), "w_down": (f, ())}
 
 
 class Local:
@@ -369,10 +433,11 @@ class Local:
 
     The batch splits over the ctx's batch axes when ``B`` divides their
     product, as the reference places it; otherwise every rank holds the
-    whole batch.  Attention heads split over ``model`` when both the query
-    and the KV heads divide it; otherwise every model rank runs all
-    heads.  The MLP's width and the vocabulary split over the axes their
-    placements name."""
+    whole batch.  Attention and MLA heads split over ``model`` when both
+    the query and the KV heads divide it; otherwise every model rank runs
+    all heads.  The MLP's width, the vocabulary and MoE's experts and
+    their width split over the axes their placements name; a recurrent
+    layer's channels as :meth:`channels` says."""
 
     def __init__(self, sctx: ShardCtx, cfg, B: int, specs):
         from ..launch.mesh import check_mesh
@@ -385,62 +450,145 @@ class Local:
         self.tp_n = tp_n if self.heads else 1
         self.v_axes = _axes(specs["embed"][0] if cfg.tie_embeddings
                             else specs["lm_head"][1])
+        self.kinds = [cfg.period[i % len(cfg.period)].kind
+                      for i in range(len(specs["layers"]))]
         self.ff_axes = [_axes(s["mlp"]["w_gate"][1]) if "mlp" in s else ()
                         for s in specs["layers"]]
+        self.chan = [self._channel_axes(s, k)
+                     for s, k in zip(specs["layers"], self.kinds)]
+
+    def _size(self, axes) -> int:
+        return math.prod(self.sctx.axis_size(a) for a in axes)
+
+    def _fit(self, axes, n) -> tuple:
+        """The longest leading run of ``axes`` whose ranks divide ``n``."""
+        while axes and n % self._size(axes):
+            axes = axes[:-1]
+        return axes
+
+    def _channel_axes(self, s, kind) -> tuple:
+        """A recurrent layer's channel axes: those of its input
+        projection's output placement, as far as they divide the channels
+        (Mamba) or the heads (mLSTM: a rank's channels are whole heads).
+        The sLSTM cell is not split (its gates interleave the heads, and
+        its group norm spans every channel)."""
+        if kind == "mamba":
+            return self._fit(_axes(s["mamba"]["in_proj"][1]),
+                             self.cfg.mamba.expand * self.cfg.d_model)
+        if kind == "mlstm":
+            return self._fit(_axes(s["mlstm"]["up_proj"][1]),
+                             self.cfg.n_heads)
+        return ()
 
     # -- the batch ------------------------------------------------------
     def rows(self, x, axes=None):
         """This rank's batch rows (dim 0) of a full-batch tensor."""
         return _block(x, 0, self.mesh, self.b_axes if axes is None else axes)
 
-    def cat(self, x, axes, dim=0):
+    def cat(self, x, axes, dim=0, parts=1):
+        """The blocks of ``x`` over ``axes`` concatenated along ``dim``
+        (of ``parts`` components, each concatenated)."""
         from ..launch.mesh import cat
-        return cat(x, self.mesh, axes, dim)
+        if parts == 1:
+            return cat(x, self.mesh, axes, dim)
+        dim %= x.dim()
+        x = x.unflatten(dim, (parts, x.shape[dim] // parts))
+        return cat(x, self.mesh, axes, dim + 1).flatten(dim, dim + 1)
 
     def sum(self, x, axes):
         from ..launch.mesh import seq_sum
         return seq_sum(x, self.mesh, axes) if axes else x
 
+    def reduce(self, x, axes, g=()):
+        """This rank's rows of the sum over ``axes`` of each rank's
+        partial ``x``, whose rows are gathered over the batch axes ``g``:
+        summed over the axes among ``g`` first, the rows taken, then
+        summed over the others (half the bytes of the second sum)."""
+        x = self.sum(x, tuple(a for a in axes if a in g))
+        if g:
+            x = self.rows(x, g)
+        return self.sum(x, tuple(a for a in axes if a not in g))
+
     def _batch_axes_of(self, axes):
         return tuple(a for a in axes if a in self.b_axes)
 
     # -- weights ----------------------------------------------------------
-    def use(self, w, spec, want):
+    def use(self, w, spec, want, parts=1):
         """``w`` (this rank's block under ``spec``) laid out as the
         compute wants it: ``want[d]`` the axes dimension ``d`` is split
-        over in the compute.  A split the compute does not keep is
-        gathered; a whole dimension the compute splits is cut."""
+        over in the compute (the last dimension of ``parts`` components
+        split each).  A block of the held block is cut; any other split
+        the compute does not keep is gathered, then cut."""
+        last = w.dim() - 1
         for dim, (entry, keep) in enumerate(zip(spec, want)):
-            have = _axes(entry)
-            if have == tuple(keep):
+            have, keep = _axes(entry), tuple(keep)
+            k = parts if dim == last else 1
+            if have == keep:
+                continue
+            if keep[:len(have)] == have:
+                w = _block(w, dim, self.mesh, keep[len(have):], k)
                 continue
             if have:
-                w = self.cat(w, have, dim)
+                w = self.cat(w, have, dim, k)
             if keep:
-                w = _block(w, dim, self.mesh, tuple(keep))
+                w = _block(w, dim, self.mesh, keep, k)
         return w
 
-    def _heads_of(self, w, spec, dim):
-        want = [()] * w.dim()
-        want[dim] = self.heads
-        return self.use(w, spec, want)
+    def _place(self, p, spec, want):
+        """The dict ``p`` of blocks laid out as ``want`` (leaf name ->
+        its ``use`` layout, a nested dict for a nested one) says; a leaf
+        it does not name is whole."""
+        return {k: self._place(w, spec[k], want.get(k, {}))
+                if isinstance(w, dict) else
+                self.use(w, spec[k], want.get(k, ((),) * w.dim()),
+                         PARTS.get(k, 1))
+                for k, w in p.items()}
+
+    def _want(self, i):
+        """Layer ``i``'s compute layout (``_place``'s ``want``)."""
+        spec, kind, H = self.specs["layers"][i], self.kinds[i], self.heads
+        want = {}
+        if kind == "attn":
+            want["attn"] = {"wq": ((), H, ()), "wk": ((), H, ()),
+                            "wv": ((), H, ()), "wo": (H, (), ()),
+                            "bq": (H, ()), "bk": (H, ()), "bv": (H, ())}
+        elif kind == "mla":
+            want["attn"] = {"w_q": ((), H, ()), "w_qb": ((), H, ()),
+                            "w_kvb": ((), H, ()), "wo": (H, (), ())}
+        elif kind == "mamba":
+            c = self.chan[i]
+            want["mamba"] = {"in_proj": ((), c), "conv_w": ((), c),
+                             "conv_b": (c,), "x_proj": (c, ()),
+                             "dt_w": ((), c), "dt_b": (c,), "A_log": (c, ()),
+                             "D": (c,), "out_proj": (c, ())}
+        elif kind == "mlstm":
+            c = self.chan[i]
+            want["mlstm"] = {k: ((), c) for k in ("up_proj", "conv_w", "wq",
+                                                  "wk", "wv", "w_i", "w_f")}
+            want["mlstm"].update({k: (c,) for k in ("conv_b", "b_i", "b_f",
+                                                    "skip")},
+                                 down_proj=(c, ()))
+        else:                                               # slstm
+            want["slstm"] = {
+                "W": ((), self._gate_axes(spec)),
+                "ffn": _mlp_want(_axes(spec["slstm"]["ffn"]["w_gate"][1]))}
+        if "mlp" in spec:
+            want["mlp"] = _mlp_want(self.ff_axes[i])
+        if "moe" in spec:
+            e, f = self._experts(i)
+            want["moe"] = {"w_gate": (e, (), f), "w_up": (e, (), f),
+                           "w_down": (e, f, ())}
+            if "shared" in spec["moe"]:
+                want["moe"]["shared"] = _mlp_want(self.shared_axes(i))
+        return want
 
     def layer(self, i, p):
         """Layer ``i``'s weights ``p`` (this rank's blocks) as its compute
-        takes them: the attention's heads split as :attr:`heads` says,
-        the MLP's width over :attr:`ff_axes`, every other dimension
-        whole (an FSDP split gathered)."""
-        spec, p = self.specs["layers"][i], dict(p)
-        head_dim = {"wq": 1, "wk": 1, "wv": 1, "wo": 0,
-                    "bq": 0, "bk": 0, "bv": 0}
-        p["attn"] = {k: self._heads_of(w, spec["attn"][k], head_dim[k])
-                     for k, w in p["attn"].items()}
-        if "mlp" in p:
-            f = self.ff_axes[i]
-            want = {"w_gate": ((), f), "w_up": ((), f), "w_down": (f, ())}
-            p["mlp"] = {k: self.use(w, spec["mlp"][k], want[k])
-                        for k, w in p["mlp"].items()}
-        return p
+        takes them: attention and MLA heads as :attr:`heads` says, a
+        recurrent layer's channels over :meth:`channels`' axes, MLP and
+        expert widths and the experts over their placements' axes, every
+        other dimension whole (an FSDP split gathered)."""
+        return self._place(p, self.specs["layers"][i], self._want(i))
 
     # -- around the layers --------------------------------------------------
     def embed(self, table, tokens):
@@ -460,8 +608,7 @@ class Local:
         x = table[local.clamp(0, rows - 1)]
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
-        x = self.sum(x, v_axes)
-        return self.rows(x, g) if g else x
+        return self.reduce(x, v_axes, g)
 
     def heads_sum(self, x):
         """A sum over the attention heads of each model rank's partial
@@ -469,15 +616,66 @@ class Local:
         model-rank order: the same on every model rank."""
         return self.sum(x, self.heads)
 
-    def mlp(self, i, x, fn):
-        """``fn`` (layer ``i``'s MLP on this rank's width) on this rank's
-        rows ``x``, gathered over the batch axes among :attr:`ff_axes`;
-        the partial outputs summed over the width's axes, and the rank's
+    def mlp(self, axes, x, fn):
+        """``fn`` (an MLP on this rank's width, split over ``axes``) on
+        this rank's rows ``x``, gathered over the batch axes among
+        ``axes``; the partial outputs summed over ``axes``, and the rank's
         rows taken back."""
-        f = self.ff_axes[i]
-        g = self._batch_axes_of(f)
-        out = self.sum(fn(self.cat(x, g) if g else x), f)
-        return self.rows(out, g) if g else out
+        g = self._batch_axes_of(axes)
+        return self.reduce(fn(self.cat(x, g) if g else x), axes, g)
+
+    def _experts(self, i):
+        """(expert axes, expert width axes) of layer ``i``'s MoE."""
+        w = self.specs["layers"][i]["moe"]["w_gate"]
+        return _axes(w[0]), _axes(w[2])
+
+    def experts(self, i):
+        """(this rank's first expert, the axes its partial outputs sum
+        over) of layer ``i``'s MoE: its experts are a block over the
+        expert axes, its expert width one over the width axes."""
+        e, f = self._experts(i)
+        n = self.cfg.moe.n_experts // self._size(e)
+        return _index(self.mesh, e)[0] * n, e + f
+
+    def shared_axes(self, i):
+        """The axes layer ``i``'s shared experts' width splits over."""
+        return _axes(self.specs["layers"][i]["moe"]["shared"]["w_gate"][1])
+
+    def _gate_axes(self, spec):
+        """The axes an sLSTM layer's gate columns (``W``'s, each gate's
+        block) split over: its placement's, as far as they divide."""
+        return self._fit(_axes(spec["slstm"]["W"][1]), self.cfg.d_model)
+
+    def channels(self, i):
+        """Layer ``i``'s :class:`Channels` (None for attention and MLA)."""
+        kind = self.kinds[i]
+        if kind in ("attn", "mla"):
+            return None
+        if kind != "slstm":
+            return Channels(self, self.chan[i])
+        spec = self.specs["layers"][i]
+        return Channels(self, (), _axes(spec["slstm"]["ffn"]["w_gate"][1]),
+                        self._gate_axes(spec))
+
+    def mixer_in(self, i, h):
+        """Layer ``i``'s mixer input from this rank's rows ``h``: a
+        recurrent layer whose channels split over batch axes takes their
+        rows too."""
+        g = self._batch_axes_of(self.chan[i])
+        return self.cat(h, g) if g else h
+
+    def mixer_out(self, i, out):
+        """Layer ``i``'s mixer output on this rank's rows from its partial
+        ``out``: summed over the heads (attention, MLA) or the channel
+        axes (Mamba, mLSTM), the rank's rows taken back."""
+        if self.kinds[i] in ("attn", "mla"):
+            return self.heads_sum(out)
+        c = self.chan[i]
+        return self.reduce(out, c, self._batch_axes_of(c))
+
+    def state_rows(self, i) -> int:
+        """The batch rows of layer ``i``'s recurrent state on this rank."""
+        return self.batch * self._size(self._batch_axes_of(self.chan[i]))
 
     def head(self, x, params):
         """(``x``, this rank's rows, gathered over the batch axes among
@@ -504,22 +702,52 @@ class Local:
     @property
     def batch(self) -> int:
         """The number of batch rows this rank holds."""
-        return self.B // math.prod(self.sctx.axis_size(a)
-                                   for a in self.b_axes)
+        return self.B // self._size(self.b_axes)
 
     def local_heads(self, n):
         """The number of heads of ``n`` this rank runs."""
         return n // self.tp_n
 
 
-def check_dense(cfg, what):
-    """Sharded serving covers the dense-attention configurations; MoE,
-    MLA and the recurrent layers raise."""
-    kinds = {s.kind for s in cfg.period}
-    if kinds != {"attn"} or (cfg.moe is not None
-                             and any(s.moe for s in cfg.period)):
-        raise NotImplementedError(
-            f"{what} under a ShardCtx: sharded serving of MoE, MLA and "
-            f"recurrent layers is not ported yet (ROADMAP A13.2); "
-            f"{cfg.name} has {sorted(kinds)}"
-            f"{' with MoE' if cfg.moe is not None else ''} layers")
+class Channels:
+    """A recurrent layer's split under a :class:`Local`: its channels
+    (mLSTM: whole heads) over ``axes``, on the rows :meth:`Local.mixer_in`
+    gives it; sLSTM's FFN width over ``ff`` and its gate columns over
+    ``gates``.  The layer code calls these where it mixes channels."""
+
+    def __init__(self, loc: Local, axes, ff=(), gates=()):
+        self.loc, self.axes = loc, tuple(axes)
+        self.ff, self.gates = tuple(ff), tuple(gates)
+
+    @property
+    def ways(self) -> int:
+        """The number of blocks the channels split into."""
+        return self.loc._size(self.axes)
+
+    def gather(self, x, parts=1):
+        """Every channel of ``x`` (the last dimension, of ``parts``
+        components) from the blocks."""
+        return (self.loc.cat(x, self.axes, -1, parts) if self.axes else x)
+
+    def block(self, x):
+        """This rank's block of the channels (the last dimension)."""
+        return _block(x, -1, self.loc.mesh, self.axes)
+
+    def sum(self, x):
+        """A contraction over every channel from each block's part."""
+        return self.loc.sum(x, self.axes)
+
+    def mlp(self, x, fn):
+        """The FFN ``fn`` on this rank's width (see :meth:`Local.mlp`)."""
+        return self.loc.mlp(self.ff, x, fn)
+
+    def project(self, x, fn):
+        """``fn`` (a projection onto this rank's block of each of the
+        four gates' columns) of the rows ``x``: the rows gathered over
+        the batch axes among :attr:`gates`, every column gathered, the
+        rank's rows taken back."""
+        loc = self.loc
+        g = loc._batch_axes_of(self.gates)
+        y = fn(loc.cat(x, g) if g else x)
+        y = loc.cat(y, self.gates, -1, 4) if self.gates else y
+        return loc.rows(y, g) if g else y

@@ -13,6 +13,15 @@ selective SSM (jamba) and the xLSTM cells, mLSTM and sLSTM (xlstm-125m).
 * sLSTM has hidden-to-gate recurrence: a Python loop over the sequence.
 
 Every state leaf but the conv tails is f32, as in the reference.
+
+Under a mesh each block takes a ``ch`` (a ``sharding.Channels``) and runs
+on the weights of a rank (``sharding.Local.layer``): Mamba on its block of
+the channels, with ``x_proj``'s contraction summed over the blocks;
+mLSTM on its block of whole heads, its q/k/v and gates from every
+channel (the blocks gathered) and its group norm over every channel; the
+sLSTM cell whole, its gates' input from the rank's block of their columns
+(gathered) and its FFN on the rank's width.  The caller sums a Mamba or
+mLSTM block's output projection over the blocks.
 """
 from __future__ import annotations
 
@@ -71,12 +80,14 @@ def mamba_dims(cfg):
     return ms, ms.expand * cfg.d_model, ms.dt_rank or -(-cfg.d_model // 16)
 
 
-def _mamba_inner(xc, p, cfg):
+def _mamba_inner(xc, p, cfg, ch=None):
     """xc: conv+silu output ``[B, L, di]`` -> (dA ``[B, L, di, ds]``, dBu,
     C ``[B, L, ds]``), in f32."""
     ms, _, dtr = mamba_dims(cfg)
     ds = ms.d_state
     dbc = torch.einsum("bld,de->ble", xc, p["x_proj"]).float()
+    if ch is not None:
+        dbc = ch.sum(dbc)
     dt_raw, Bm, Cm = torch.split(dbc, [dtr, ds, ds], dim=-1)
     dt = F.softplus(torch.einsum("blr,rd->bld", dt_raw, p["dt_w"].float())
                     + p["dt_b"])                             # [B, L, di]
@@ -104,11 +115,12 @@ def _scan_chunk(h0, dA, dBu):
     return h_all, h_all[:, -1]
 
 
-def mamba_apply(x, p, cfg, return_state=False):
+def mamba_apply(x, p, cfg, return_state=False, ch=None):
     """Prefill pass.  x ``[B, S, d]`` -> ``[B, S, d]`` (and, with
     ``return_state``, the decode state ``{"conv", "h"}``)."""
     B, S, _ = x.shape
-    ms, di, _ = mamba_dims(cfg)
+    ms = cfg.mamba
+    di = p["A_log"].shape[0]                # p's channels (a rank's own)
     chunk = _largest_divisor(S, ms.chunk)
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
     xin, z = xz.chunk(2, dim=-1)
@@ -118,7 +130,7 @@ def mamba_apply(x, p, cfg, return_state=False):
     ys = []
     for c0 in range(0, S, chunk):
         xck = xc[:, c0:c0 + chunk]
-        dA, dBu, Cm = _mamba_inner(xck, p, cfg)
+        dA, dBu, Cm = _mamba_inner(xck, p, cfg, ch)
         h_all, h = _scan_chunk(h, dA, dBu)
         del dA, dBu
         y = torch.einsum("blds,bls->bld", h_all, Cm)
@@ -131,22 +143,25 @@ def mamba_apply(x, p, cfg, return_state=False):
     return out
 
 
-def mamba_state_init(cfg, B, dtype, device):
+def mamba_state_init(cfg, B, dtype, device, ways=1):
+    """The zero state of ``B`` sequences (of one of ``ways`` blocks of the
+    channels)."""
     ms, di, _ = mamba_dims(cfg)
+    di //= ways
     return {"conv": torch.zeros((B, ms.d_conv - 1, di), dtype=dtype,
                                 device=device),
             "h": torch.zeros((B, di, ms.d_state), dtype=torch.float32,
                              device=device)}
 
 
-def mamba_decode_step(x_t, p, cfg, state):
+def mamba_decode_step(x_t, p, cfg, state, ch=None):
     """x_t ``[B, d]`` -> (``[B, d]``, new state)."""
     xz = torch.einsum("bd,de->be", x_t, p["in_proj"])
     xin, z = xz.chunk(2, dim=-1)
     conv_state, xc = conv1d_step(state["conv"], xin, p["conv_w"],
                                  p["conv_b"])
     xc = F.silu(xc)
-    dA, dBu, Cm = _mamba_inner(xc[:, None], p, cfg)
+    dA, dBu, Cm = _mamba_inner(xc[:, None], p, cfg, ch)
     h = state["h"] * dA[:, 0] + dBu[:, 0]
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0]) + p["D"] * xc.float()
     y = y.to(x_t.dtype) * F.silu(z)
@@ -164,11 +179,12 @@ def mlstm_dims(cfg):
     return di, di // cfg.n_heads
 
 
-def _mlstm_qkvif(xc, xv, p, H):
+def _mlstm_qkvif(xc, xv, p):
     """Per-head q, k, v from the conv output / value path, and the gate
-    pre-activations (f32)."""
-    B, L, di = xc.shape
-    dh = di // H
+    pre-activations (f32), for the heads of ``p``."""
+    B, L, _ = xc.shape
+    H = p["w_i"].shape[1]
+    dh = p["wq"].shape[1] // H
     q = torch.einsum("bld,de->ble", xc, p["wq"]).reshape(B, L, H, dh)
     k = torch.einsum("bld,de->ble", xc, p["wk"]).reshape(B, L, H, dh)
     v = torch.einsum("bld,de->ble", xv, p["wv"]).reshape(B, L, H, dh)
@@ -254,34 +270,52 @@ def mlstm_seq(q, k, v, i_pre, f_pre, C0, n0, m0):
     return torch.stack(hs, dim=1).to(q.dtype), C, n, m
 
 
-def _mlstm_out(h, xc, z, p, cfg):
-    """Group norm, skip, output gate and down projection of the cell's
-    h ``[..., di]``."""
-    h = rmsnorm(h, p["gn"], cfg.norm_eps) + p["skip"] * xc
+def _whole(ch):
+    """Every channel of a block of them (``ch.gather``; unsharded, x)."""
+    return (lambda x: x) if ch is None else ch.gather
+
+
+def _whole_pair(a, b, ch):
+    """Every channel of two blocks of them, gathered together."""
+    if ch is None:
+        return a, b
+    return ch.gather(torch.cat([a, b], dim=-1), parts=2).chunk(2, dim=-1)
+
+
+def _mlstm_out(h, xc, z, p, cfg, ch=None):
+    """Group norm (over every channel), skip, output gate and down
+    projection of the cell's h ``[..., di]``."""
+    h = rmsnorm(_whole(ch)(h), p["gn"], cfg.norm_eps)
+    if ch is not None:
+        h = ch.block(h)
+    h = h + p["skip"] * xc
     return torch.einsum("...d,de->...e", h * F.silu(z), p["down_proj"])
 
 
-def mlstm_apply(x, p, cfg, return_state=False):
+def mlstm_apply(x, p, cfg, return_state=False, ch=None):
     """mLSTM block: x ``[B, S, d]`` -> ``[B, S, d]`` (and the state)."""
     B, S, _ = x.shape
-    xs, H = cfg.xlstm, cfg.n_heads
+    xs = cfg.xlstm
     xz = torch.einsum("bsd,de->bse", x, p["up_proj"])
     xin, z = xz.chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(xin, p["conv_w"], p["conv_b"]))
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(xc, xin, p, H)
-    st = mlstm_state_init(cfg, B, x.dtype, x.device)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(*_whole_pair(xc, xin, ch), p)
+    st = mlstm_state_init(cfg, B, x.dtype, x.device,
+                          cfg.n_heads // p["w_i"].shape[1])
     h, C, n, m = mlstm_cell_chunked(q, k, v, i_pre, f_pre, st["C"], st["n"],
                                     st["m"], min(xs.m_chunk, S))
-    out = _mlstm_out(h.reshape(B, S, -1), xc, z, p, cfg)
+    out = _mlstm_out(h.reshape(B, S, -1), xc, z, p, cfg, ch)
     if return_state:
         return out, {"conv": _conv_tail(xin, xs.m_conv - 1), "C": C, "n": n,
                      "m": m}
     return out
 
 
-def mlstm_state_init(cfg, B, dtype, device):
+def mlstm_state_init(cfg, B, dtype, device, ways=1):
+    """The zero state of ``B`` sequences (of one of ``ways`` blocks of the
+    heads)."""
     di, dh = mlstm_dims(cfg)
-    H = cfg.n_heads
+    di, H = di // ways, cfg.n_heads // ways
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((B, cfg.xlstm.m_conv - 1, di), dtype=dtype,
                                 device=device),
@@ -290,18 +324,18 @@ def mlstm_state_init(cfg, B, dtype, device):
             "m": torch.zeros((B, H), **f32)}
 
 
-def mlstm_decode_step(x_t, p, cfg, state):
+def mlstm_decode_step(x_t, p, cfg, state, ch=None):
     B = x_t.shape[0]
     xz = torch.einsum("bd,de->be", x_t, p["up_proj"])
     xin, z = xz.chunk(2, dim=-1)
     conv_state, xc = conv1d_step(state["conv"], xin, p["conv_w"],
                                  p["conv_b"])
     xc = F.silu(xc)
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(xc[:, None], xin[:, None], p,
-                                         cfg.n_heads)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(
+        *(t[:, None] for t in _whole_pair(xc, xin, ch)), p)
     h, C, n, m = mlstm_seq(q, k, v, i_pre, f_pre, state["C"], state["n"],
                            state["m"])
-    out = _mlstm_out(h.reshape(B, -1), xc, z, p, cfg)
+    out = _mlstm_out(h.reshape(B, -1), xc, z, p, cfg, ch)
     return out, {"conv": conv_state, "C": C, "n": n, "m": m}
 
 
@@ -335,34 +369,50 @@ def _slstm_cell(Wx_t, h_prev, c_prev, n_prev, m_prev, R, H):
     return h, c, n, m_new
 
 
-def _slstm_out(x, h, p, cfg):
+def _gates_in(xc, p, ch=None):
+    """The gates' input part ``xc W + b`` (f32); under a mesh from this
+    rank's block of each gate's columns (``ch.project``)."""
+    def proj(u):
+        return torch.einsum("...d,de->...e", u, p["W"])
+
+    return (proj(xc) if ch is None else ch.project(xc, proj)).float() + p["b"]
+
+
+def _slstm_out(x, h, p, cfg, ch=None):
     """Group norm, the cell residual and the block's gated FFN (gelu);
     the model adds x back."""
     out = x + rmsnorm(h, p["gn"], cfg.norm_eps)
-    ff = mlp_apply(rmsnorm(out, p["ffn_norm"], cfg.norm_eps), p["ffn"],
-                   act="gelu")
+
+    def ffn(u):
+        return mlp_apply(u, p["ffn"], act="gelu")
+
+    u = rmsnorm(out, p["ffn_norm"], cfg.norm_eps)
+    ff = ffn(u) if ch is None else ch.mlp(u, ffn)
     return out + ff - x
 
 
-def slstm_apply(x, p, cfg, return_state=False):
+def slstm_apply(x, p, cfg, return_state=False, ch=None):
     """sLSTM block: conv -> cell loop -> group norm -> gated FFN."""
     B, S, d = x.shape
     xc = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
-    Wx = torch.einsum("bsd,de->bse", xc, p["W"]).float() + p["b"]
+    Wx = _gates_in(xc, p, ch)
     st = slstm_state_init(cfg, B, x.dtype, x.device)
     h, c, n, m = st["h"], st["c"], st["n"], st["m"]
     hs = []
     for t in range(S):
         h, c, n, m = _slstm_cell(Wx[:, t], h, c, n, m, p["R"], cfg.n_heads)
         hs.append(h)
-    y = _slstm_out(x, torch.stack(hs, dim=1).to(x.dtype), p, cfg)
+    y = _slstm_out(x, torch.stack(hs, dim=1).to(x.dtype), p, cfg, ch)
     if return_state:
         return y, {"conv": _conv_tail(x, cfg.xlstm.s_conv - 1), "h": h,
                    "c": c, "n": n, "m": m}
     return y
 
 
-def slstm_state_init(cfg, B, dtype, device):
+def slstm_state_init(cfg, B, dtype, device, ways=1):
+    """The zero state of ``B`` sequences (the cell is never split:
+    ``ways`` is 1)."""
+    assert ways == 1, "the sLSTM cell is whole on every rank"
     d = cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((B, cfg.xlstm.s_conv - 1, d), dtype=dtype,
@@ -371,12 +421,12 @@ def slstm_state_init(cfg, B, dtype, device):
             "n": torch.zeros((B, d), **f32), "m": torch.zeros((B, d), **f32)}
 
 
-def slstm_decode_step(x_t, p, cfg, state):
+def slstm_decode_step(x_t, p, cfg, state, ch=None):
     conv_state, xc = conv1d_step(state["conv"], x_t, p["conv_w"],
                                  p["conv_b"])
     xc = F.silu(xc)
-    Wx = torch.einsum("bd,de->be", xc, p["W"]).float() + p["b"]
+    Wx = _gates_in(xc, p, ch)
     h, c, n, m = _slstm_cell(Wx, state["h"], state["c"], state["n"],
                              state["m"], p["R"], cfg.n_heads)
-    y = _slstm_out(x_t[:, None], h.to(x_t.dtype)[:, None], p, cfg)[:, 0]
+    y = _slstm_out(x_t[:, None], h.to(x_t.dtype)[:, None], p, cfg, ch)[:, 0]
     return y, {"conv": conv_state, "h": h, "c": c, "n": n, "m": m}

@@ -62,16 +62,28 @@ def schedule(cfg: AdamWConfig, step):
 
 # --- blockwise int8 moment quantization ------------------------------------
 
+def _sqrt(x):
+    """f32 ``sqrt`` correctly rounded on every device.  CUDA's ``sqrtf`` is
+    IEEE; torch's vectorised CPU ``sqrt`` (the AVX-512 one) can be one ulp
+    off, so a CPU tensor takes it in f64 and rounds once back to f32, which
+    is exact: the f64 root of an f32 rounds to the f32 root."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def quantize(x, sqrt_domain: bool = False):
     """f32 tensor -> ``{"q": int8 [blocks, BLOCK], "scale": f32 [blocks]}``
     over its flattening, zero-padded to whole blocks.
 
     ``sqrt_domain=True`` quantizes ``sqrt(x)`` (x >= 0), as for the second
     moment, whose quadratic range would otherwise round small-|g| elements
-    to v = 0 while their m survives."""
+    to v = 0 while their m survives.  The square root is correctly rounded
+    (:func:`_sqrt`), as XLA's is, so that the scales are the reference's
+    bit for bit on any host."""
     flat = x.reshape(-1)
     if sqrt_domain:
-        flat = torch.sqrt(torch.clamp(flat, min=0.0))
+        flat = _sqrt(torch.clamp(flat, min=0.0))
     flat = torch.nn.functional.pad(flat, (0, -flat.numel() % BLOCK))
     flat = flat.reshape(-1, BLOCK)
     scale = flat.abs().amax(dim=1) / 127.0
@@ -148,7 +160,7 @@ def global_norm(tree):
     for leaf in _leaves(tree):
         for x in (leaf if isinstance(leaf, list) else [leaf]):
             sq.append(x.float().square().sum())
-    return torch.sqrt(torch.stack(sq).sum())
+    return _sqrt(torch.stack(sq).sum())
 
 
 @torch.no_grad()

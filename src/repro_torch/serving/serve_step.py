@@ -21,15 +21,18 @@ B3 (``kernels.decode_attention``); ``impl="plain"`` runs their plain
 versions instead.
 
 With ``sctx`` (a ``models.sharding.ShardCtx`` over a mesh of ranks),
-:func:`prefill` and :func:`decode_step` run sharded for the
-dense-attention configurations: each rank holds its blocks of the
-parameters and of the state (its batch rows, its KV heads), takes the
-whole batch's tokens and returns the whole batch's logits; B2 and B3 run
-on each rank's heads, and DAC's hit signal sums their per-slot mass over
+:func:`prefill` and :func:`decode_step` run sharded for every
+configuration: each rank holds its blocks of the parameters and of the
+state, takes the whole batch's tokens and returns the whole batch's
+logits.  B2 and B3 run on each rank's heads (attention and MLA), and
+DAC's hit signal sums their per-slot mass (MLA's absorbed decode's) over
 the model ranks in a fixed order, so that the control state is the same
-on every model rank (it is kept whole there, not slot-sharded as
-:func:`serve_state_shardings` places it).  MoE, MLA and recurrent layers
-under ``sctx`` raise (ROADMAP A13.2).
+on every model rank.  The state's blocks (``sharding.Local``): the batch
+rows of the rank; an attention layer's KV heads; MLA's latent and
+``k_rope`` whole on each model rank; Mamba's and mLSTM's states over the
+layer's channel blocks (``Local.state_rows`` rows), sLSTM's whole; DAC's
+control rows whole on each model rank.  :func:`serve_state_shardings`
+(the reference's tables) says where these differ from the reference.
 
 The state is ``{"pos": [B] int32, "layers": [one dict per layer]}``.
 Unlike the reference (whose arrays are immutable), :func:`decode_step`
@@ -62,9 +65,9 @@ CACHE_KEYS = {"attn": ("k", "v"), "mla": ("latent", "krope")}
 
 
 def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device,
-                 n_kv):
+                 n_kv, ways=1):
     if kind in RECURRENT:
-        return RECURRENT[kind][0](cfg, B, cfg.dtype, device)
+        return RECURRENT[kind][0](cfg, B, cfg.dtype, device, ways)
     L = budget if budget else max_len
     kw = dict(dtype=cfg.dtype, device=device)
     if kind == "attn":
@@ -89,14 +92,23 @@ def init_serve_state(cfg: ArchConfig, B: int, max_len: int, budget: int = 0,
     """Fresh serve state.  budget > 0 => bounded DAC pool; ``k0`` starts
     each sequence's active budget below the full pool.  With ``sctx``,
     this rank's block of the state of ``B`` sequences."""
-    n_kv = cfg.n_kv_heads
-    if sctx is not None:
-        loc = local_view(cfg, sctx, B)
-        B, n_kv = loc.batch, loc.local_heads(n_kv)
-    return {"pos": torch.zeros(B, dtype=torch.int32, device=device),
-            "layers": [_layer_state(cfg, layer_spec(cfg, layer).kind, B,
-                                    max_len, budget, k0, device, n_kv)
-                       for layer in range(cfg.n_layers)]}
+    kinds = [layer_spec(cfg, layer).kind for layer in range(cfg.n_layers)]
+    if sctx is None:
+        return {"pos": torch.zeros(B, dtype=torch.int32, device=device),
+                "layers": [_layer_state(cfg, kind, B, max_len, budget, k0,
+                                        device, cfg.n_kv_heads)
+                           for kind in kinds]}
+    loc = local_view(cfg, sctx, B)
+    layers = []
+    for layer, kind in enumerate(kinds):
+        rows, ways = loc.batch, 1
+        if kind in RECURRENT:
+            rows, ways = loc.state_rows(layer), loc.channels(layer).ways
+        layers.append(_layer_state(cfg, kind, rows, max_len, budget, k0,
+                                   device, loc.local_heads(cfg.n_kv_heads),
+                                   ways))
+    return {"pos": torch.zeros(loc.batch, dtype=torch.int32, device=device),
+            "layers": layers}
 
 
 def kv_bytes(state) -> int:
@@ -148,29 +160,31 @@ def _hit(st, ctrl, mass, valid, eps, k_min, kv_caps):
 def _decode_attn(h, p, st, cfg, spec, pos, impl, loc=None, **dac):
     """One attention layer's decode.  h ``[B, 1, d]`` (normed); writes the
     token's K/V into ``st`` in place; returns ``[B, d]``.  Under a mesh
-    (``loc``) the rank's rows and heads, the mass and the output summed
-    over the model ranks."""
+    (``loc``) the rank's rows and heads, the mass summed over the model
+    ranks; the output is the rank's heads' part."""
     q, k, v = attn_qkv(h, p["attn"], cfg, pos[:, None])   # [B, 1, H|Hkv, hd]
     ctrl, valid = _insert(st, ("k", "v"), (k[:, 0], v[:, 0]), pos,
                           spec.window)
     o, mass = attend_decode(q[:, 0], st["k"], st["v"], valid,
                             softcap=cfg.attn_softcap, impl=impl)
-    if loc is None:
-        _hit(st, ctrl, mass, valid, **dac)
-        return torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
-    _hit(st, ctrl, loc.heads_sum(mass), valid, **dac)
-    return loc.heads_sum(torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"]))
+    _hit(st, ctrl, mass if loc is None else loc.heads_sum(mass), valid,
+         **dac)
+    return torch.einsum("bhk,hkd->bd", o, p["attn"]["wo"])
 
 
-def _decode_mla(h, p, st, cfg, pos, **dac):
+def _decode_mla(h, p, st, cfg, pos, loc=None, **dac):
     """One MLA layer's decode: the token's (latent, k_rope) written into
-    the cache, then the absorbed attention (plain torch in both impls)."""
+    the cache, then the absorbed attention (plain torch in both impls).
+    Under a mesh (``loc``) on the rank's rows and heads over the whole
+    latent cache, the mass summed over the model ranks; the output is the
+    rank's heads' part."""
     latent, krope = mla.mla_latent(h, p["attn"], cfg, pos[:, None])
     ctrl, valid = _insert(st, ("latent", "krope"),
                           (latent[:, 0], krope[:, 0, 0]), pos, None)
     out, mass = mla.mla_attend(h, p["attn"], cfg, st["latent"], st["krope"],
                                valid, pos)
-    _hit(st, ctrl, mass, valid, **dac)
+    _hit(st, ctrl, mass if loc is None else loc.heads_sum(mass), valid,
+         **dac)
     return out
 
 
@@ -196,18 +210,22 @@ def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
     pos = state["pos"]
     x = embed_inputs(params, cfg, token, embed, loc)[:, None]   # [B, 1, d]
     for layer, (p, st) in enumerate(zip(params["layers"], state["layers"])):
-        spec = layer_spec(cfg, layer)
+        spec, ch = layer_spec(cfg, layer), None
         if loc is not None:
-            p = loc.layer(layer, p)
+            p, ch = loc.layer(layer, p), loc.channels(layer)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         if spec.kind == "attn":
             out = _decode_attn(h, p, st, cfg, spec, pos, impl, loc, **dac)
         elif spec.kind == "mla":
-            out = _decode_mla(h, p, st, cfg, pos, **dac)
+            out = _decode_mla(h, p, st, cfg, pos, loc, **dac)
         else:
+            if loc is not None:
+                h = loc.mixer_in(layer, h)
             out, new = RECURRENT[spec.kind][1](h[:, 0], p[spec.kind], cfg,
-                                               st)
+                                               st, ch)
             st.update(new)
+        if loc is not None:
+            out = loc.mixer_out(layer, out)
         x = ffn(x + out[:, None], p, cfg, loc, layer)
     logits = logits_head(params, cfg, x, loc)[:, 0]
     state["pos"] = pos + 1

@@ -18,6 +18,9 @@ POLICIES = ("dac", "ac", "climb", "fifo", "arc")
 # the dense-attention configurations besides deepseek-7b and gemma2-27b
 DENSE = ("codeqwen1.5-7b", "qwen1.5-110b", "llava-next-mistral-7b",
          "musicgen-medium")
+# the configurations with MoE, MLA or recurrent layers
+ARCH = ("deepseek-v2-236b", "mixtral-8x22b", "jamba-1.5-large-398b",
+        "xlstm-125m")
 
 
 def _np(x):
@@ -145,127 +148,258 @@ def fleet_world(cases, graph_chunk, graph_max_T):
     return out
 
 
-def serve_world(names, budgets, steps, ref_file):
+class _Routing:
+    """Records every MoE routing (the experts chosen) and dispatch (the
+    choices kept) while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+        self.route, self.dispatch = moe.route, moe.dispatch
+
+        def route(*a, **k):
+            out = self.route(*a, **k)
+            self.calls.append(("experts", _np(out[0])))
+            return out
+
+        def dispatch(*a, **k):
+            out = self.dispatch(*a, **k)
+            self.calls.append(("kept", _np(out[1])))
+            return out
+
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.route, self.dispatch
+
+    def equals(self, other) -> bool:
+        return len(self.calls) == len(other.calls) and all(
+            a[0] == b[0] and np.array_equal(a[1], b[1])
+            for a, b in zip(self.calls, other.calls))
+
+    def dropped(self) -> int:
+        """Choices dropped at decode (one dispatch group of the batch)."""
+        return int(sum((~c[1]).sum() for c in self.calls
+                       if c[0] == "kept" and c[1].shape[0] == 1))
+
+
+# the channel dimension of a split recurrent state leaf, by layer kind
+_CHANNEL_DIM = {"mamba": {"conv": 2, "h": 1},
+                "mlstm": {"conv": 2, "C": 1, "n": 1, "m": 1}}
+
+
+def _whole_states(loc, state):
+    """Every recurrent layer's state of a rank, gathered over the channel
+    blocks and the batch (every collective on every rank)."""
+    out = {}
+    for layer, st in enumerate(state["layers"]):
+        kind = loc.kinds[layer]
+        if kind in ("attn", "mla"):
+            continue
+        c = loc.chan[layer]
+        rest = tuple(a for a in loc.b_axes if a not in c)
+        for k, x in st.items():
+            dim = _CHANNEL_DIM.get(kind, {}).get(k)
+            if dim is not None and c:
+                x = loc.cat(x, c, dim)
+            out[(layer, k)] = _np(loc.cat(x, rest) if rest else x)
+    return out
+
+
+def _serve(params, cfg, first, steps, sctx=None, **kw):
+    """Prefill ``first`` and decode ``steps`` (dicts of the inputs):
+    the logits of each, the bounded layers' control state after each
+    step (under a mesh, gathered over the batch axes), the routing and
+    the final state."""
+    from repro_torch.models.model import local_view
+    from repro_torch.serving import decode_step, prefill
+    with _Routing() as routing:
+        st, lg = prefill(params, cfg, sctx=sctx, **first, **kw)
+        logits, ctrl = [_np(lg)], []
+        for step in steps:
+            st, lg = decode_step(params, cfg, st, sctx=sctx, **step)
+            logits.append(_np(lg))
+            pooled = [s["ctrl"] for s in st["layers"] if "ctrl" in s]
+            if sctx is not None:
+                b = local_view(cfg, sctx, lg.shape[0]).b_axes
+                pooled = [{k: M.cat(v, sctx.mesh, b) for k, v in c.items()}
+                          for c in pooled]
+            ctrl.append([{k: _np(v) for k, v in c.items()} for c in pooled])
+    return np.stack(logits), ctrl, routing, st
+
+
+def _ctrl_equal(got, want) -> bool:
+    return all(np.array_equal(g[k], w[k]) for a, b in zip(got, want)
+               for g, w in zip(a, b) for k in w)
+
+
+def _token_inputs(cfg, B, S, steps, seed):
+    """(prefill inputs, decode inputs) of ``B`` sequences: tokens, or
+    embeddings for a stub frontend."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.embeds_input:
+        return (dict(embeds=torch.randn(B, S, cfg.d_model, generator=g)),
+                [dict(embed=torch.randn(B, cfg.d_model, generator=g))
+                 for _ in range(steps)])
+    return (dict(tokens=torch.randint(0, cfg.vocab, (B, S), generator=g)),
+            [dict(token=torch.randint(0, cfg.vocab, (B,), generator=g))
+             for _ in range(steps)])
+
+
+def serve_world(names, budgets, steps, refs, modes=("serve", "train"),
+                others=DENSE, pod="gemma2-27b", drops=None):
     """Sharded serving on a (data 2, model 2) mesh against the unsharded
-    port, f32 smoke configs: prefill plus ``steps`` teacher-forced decode
-    steps at each budget; and the sharded decode from a fresh state
-    against the reference's own sharded decode (``ref_file``: its
-    parameters, tokens and logits)."""
+    port, f32 smoke configs, each rank's parameters built by
+    ``init_params(sctx=)`` (and checked against ``shard_tree`` of the
+    whole model):
+
+    * ``names``: prefill plus ``steps`` teacher-forced decode steps at
+      each budget, in each of ``modes``: logits, DAC's control state
+      after every step, MoE routing and drops, recurrent states;
+    * ``others``: serve mode, bounded, 3 steps: logits;
+    * ``pod``: that config on a (pod 2, data 1, model 2) mesh, a batch
+      that splits over (pod, data) and one that does not;
+    * ``drops`` (a config name, a capacity factor and a batch): MoE with
+      choices dropped at decode, whose drops must be the unsharded ones;
+    * ``refs`` (``{name: (file, mode)}``): the sharded decode from a fresh
+      bounded state against the reference's own (the file: its
+      parameters, tokens and logits)."""
     from repro_torch.configs import SMOKE_ARCHS
     from repro_torch.models import init_params, params_from_reference
-    from repro_torch.models.model import param_shapes
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import local_view, param_shapes
     from repro_torch.models.sharding import param_specs, shard_tree
-    from repro_torch.serving import decode_step, init_serve_state, prefill
+    from repro_torch.serving import decode_step, init_serve_state
     mesh = M.make_test_mesh(data=2, model=2)     # on the rank's CPU
     assert mesh.device_type == "cpu"
+
+    def f32(name):
+        return dataclasses.replace(SMOKE_ARCHS[name], param_dtype="float32")
+
+    def whole(cfg):
+        return init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+
+    def local(cfg, sctx, params):
+        """(this rank's blocks from init_params(sctx=), whether they are
+        shard_tree's cut of ``params``, and whether they still are when
+        every leaf past 256 elements is drawn in slices of rows)."""
+        specs = param_specs(param_shapes(cfg), cfg, sctx)
+
+        def same(mine, whole_params):
+            cut = shard_tree(whole_params, specs, sctx.mesh)
+            return all(torch.equal(a, b) for a, b in zip(_leaves(mine),
+                                                         _leaves(cut)))
+
+        mine = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", sctx=sctx)
+        equal = same(mine, params)
+        draw_slice, model_mod._DRAW_SLICE = model_mod._DRAW_SLICE, 256
+        try:
+            equal = equal and same(
+                init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", sctx=sctx), whole(cfg))
+        finally:
+            model_mod._DRAW_SLICE = draw_slice
+        return mine, equal
+
     out = {}
     for name in names:
-        cfg = dataclasses.replace(SMOKE_ARCHS[name], param_dtype="float32")
-        params = init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
+        cfg = f32(name)
+        params = whole(cfg)
         rng = np.random.default_rng(1)
         B, S = 4, 24
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
-        forced = torch.from_numpy(rng.integers(0, cfg.vocab, (steps, B)))
-        for budget in budgets:
-            st, lg = prefill(params, cfg, tokens=toks, budget=budget,
+        first = dict(tokens=torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                          (B, S))))
+        forced = [dict(token=torch.from_numpy(t))
+                  for t in rng.integers(0, cfg.vocab, (steps, B))]
+        wants = {budget: _serve(params, cfg, first, forced, budget=budget,
+                                max_len=64) for budget in budgets}
+        for mode in modes:
+            sctx = M.shard_ctx(mesh, mode=mode)
+            blocks, same = local(cfg, sctx, params)
+            for budget in budgets:
+                want = wants[budget]
+                got = _serve(blocks, cfg, first, forced, sctx, budget=budget,
                              max_len=64)
-            want, ctrl_want = [_np(lg)], []
-            for t in forced:
-                st, lg = decode_step(params, cfg, st, token=t)
-                want.append(_np(lg))
-                if budget:
-                    ctrl_want.append([{k: _np(v) for k, v in s["ctrl"].items()}
-                                      for s in st["layers"]])
-            for mode in ("serve", "train"):
-                sctx = M.shard_ctx(mesh, mode=mode)
-                local = shard_tree(
-                    params, param_specs(param_shapes(cfg), cfg, sctx), mesh)
-                st, lg = prefill(local, cfg, tokens=toks, budget=budget,
-                                 max_len=64, sctx=sctx)
-                got, ctrl = [_np(lg)], []
-                for i, t in enumerate(forced):
-                    st, lg = decode_step(local, cfg, st, token=t, sctx=sctx)
-                    got.append(_np(lg))
-                    if budget:
-                        # every gather runs on every rank (a list, not a
-                        # short-circuiting generator)
-                        ctrl.append(all([
-                            np.array_equal(w[k], _np(M.cat(
-                                s["ctrl"][k], mesh, ("data",))))
-                            for w, s in zip(ctrl_want[i], st["layers"])
-                            for k in w]))
-                out[(name, mode, budget)] = (np.stack(got), np.stack(want),
-                                             ctrl)
-    # the other dense configurations (qkv biases, GQA groups, stub
-    # frontends that take embeddings), serve mode, bounded
+                loc = local_view(cfg, sctx, B)
+                states = _whole_states(loc, got[3])
+                state_err = max((float(np.abs(v - _np(
+                    want[3]["layers"][layer][k])).max())
+                    for (layer, k), v in states.items()), default=0.0)
+                out[(name, mode, budget)] = dict(
+                    logits=(got[0], want[0]), init_equal=same,
+                    ctrl_equal=_ctrl_equal(got[1], want[1]),
+                    ctrl_steps=sum(len(c) for c in want[1]),
+                    routing_equal=got[2].equals(want[2]),
+                    routings=len(want[2].calls), state_err=state_err,
+                    states=len(states))
     sctx = M.shard_ctx(mesh, mode="serve")
-    for name in DENSE:
-        cfg = dataclasses.replace(SMOKE_ARCHS[name], param_dtype="float32")
-        params = init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-        local = shard_tree(params, param_specs(param_shapes(cfg), cfg, sctx),
-                           mesh)
-        g = torch.Generator().manual_seed(3)
-        if cfg.embeds_input:
-            first = dict(embeds=torch.randn(4, 12, cfg.d_model, generator=g))
-            steps = [dict(embed=torch.randn(4, cfg.d_model, generator=g))
-                     for _ in range(3)]
-        else:
-            first = dict(tokens=torch.randint(0, cfg.vocab, (4, 12),
-                                              generator=g))
-            steps = [dict(token=torch.randint(0, cfg.vocab, (4,),
-                                              generator=g))
-                     for _ in range(3)]
-        st, lg = prefill(params, cfg, budget=8, max_len=20, **first)
-        st2, lg2 = prefill(local, cfg, budget=8, max_len=20, sctx=sctx,
-                           **first)
-        want, got = [_np(lg)], [_np(lg2)]
-        for kw in steps:
-            st, lg = decode_step(params, cfg, st, **kw)
-            st2, lg2 = decode_step(local, cfg, st2, sctx=sctx, **kw)
-            want.append(_np(lg))
-            got.append(_np(lg2))
-        out[("dense", name)] = (np.stack(got), np.stack(want))
+    for name in others:
+        cfg = f32(name)
+        params = whole(cfg)
+        first, steps3 = _token_inputs(cfg, 4, 12, 3, seed=3)
+        want = _serve(params, cfg, first, steps3, budget=8, max_len=20)
+        got = _serve(local(cfg, sctx, params)[0], cfg, first, steps3, sctx,
+                     budget=8, max_len=20)
+        out[("other", name)] = (got[0], want[0])
+    if drops is not None:
+        name, factor, B = drops
+        cfg = f32(name)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=factor))
+        params = whole(cfg)
+        first, forced = _token_inputs(cfg, B, 16, 4, seed=4)
+        want = _serve(params, cfg, first, forced)
+        got = _serve(local(cfg, sctx, params)[0], cfg, first, forced, sctx)
+        out["drops"] = dict(logits=(got[0], want[0]),
+                            routing_equal=got[2].equals(want[2]),
+                            dropped=want[2].dropped())
     # a (pod 2, data 1, model 2) mesh, a batch that splits over (pod,
     # data) and one that does not (replicated)
-    pod = M.make_test_mesh(data=1, model=2, pod=2)
-    cfg = dataclasses.replace(SMOKE_ARCHS["gemma2-27b"],
-                              param_dtype="float32")
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         device="cpu")
-    sctx = M.shard_ctx(pod, mode="serve")
-    local = shard_tree(params, param_specs(param_shapes(cfg), cfg, sctx),
-                       pod)
+    pmesh = M.make_test_mesh(data=1, model=2, pod=2)
+    cfg = f32(pod)
+    sctx = M.shard_ctx(pmesh, mode="serve")
+    params = whole(cfg)
+    blocks = local(cfg, sctx, params)[0]
     rng = np.random.default_rng(2)
     for B in (4, 3):
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 16)))
-        forced = torch.from_numpy(rng.integers(0, cfg.vocab, (3, B)))
-        st, lg = prefill(params, cfg, tokens=toks, budget=16, max_len=32)
-        st2, lg2 = prefill(local, cfg, tokens=toks, budget=16, max_len=32,
-                           sctx=sctx)
-        want, got = [_np(lg)], [_np(lg2)]
-        for t in forced:
-            st, lg = decode_step(params, cfg, st, token=t)
-            st2, lg2 = decode_step(local, cfg, st2, token=t, sctx=sctx)
-            want.append(_np(lg))
-            got.append(_np(lg2))
-        out[("pod", B)] = (np.stack(got), np.stack(want),
-                           int(st2["pos"].shape[0]))
+        first = dict(tokens=torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                          (B, 16))))
+        forced = [dict(token=torch.from_numpy(t))
+                  for t in rng.integers(0, cfg.vocab, (3, B))]
+        want = _serve(params, cfg, first, forced, budget=16, max_len=32)
+        got = _serve(blocks, cfg, first, forced, sctx, budget=16, max_len=32)
+        out[("pod", B)] = dict(logits=(got[0], want[0]),
+                               rows=int(got[3]["pos"].shape[0]),
+                               routing_equal=got[2].equals(want[2]))
     # the reference's sharded decode, from its parameters and a fresh state
-    ref = np.load(ref_file, allow_pickle=True)
-    cfg = dataclasses.replace(SMOKE_ARCHS["deepseek-7b"],
-                              param_dtype="float32")
-    rparams = params_from_reference(ref["params"].item(), cfg, device="cpu")
-    sctx = M.shard_ctx(mesh, mode="train")
-    local = shard_tree(rparams, param_specs(param_shapes(cfg), cfg, sctx),
-                       mesh)
-    state = init_serve_state(cfg, 4, max_len=64, budget=32, device="cpu",
-                             sctx=sctx)
-    logits = []
-    for t in ref["tokens"]:
-        state, lg = decode_step(local, cfg, state,
-                                token=torch.from_numpy(t), sctx=sctx)
-        logits.append(_np(lg))
-    out["vs_reference"] = (np.stack(logits), ref["logits"])
+    for name, (ref_file, mode) in refs.items():
+        ref = np.load(ref_file, allow_pickle=True)
+        cfg = f32(name)
+        rparams = params_from_reference(ref["params"].item(), cfg,
+                                        device="cpu")
+        sctx = M.shard_ctx(mesh, mode=mode)
+        blocks = shard_tree(rparams, param_specs(param_shapes(cfg), cfg,
+                                                 sctx), mesh)
+        state = init_serve_state(cfg, 4, max_len=64, budget=32, device="cpu",
+                                 sctx=sctx)
+        logits = []
+        for t in ref["tokens"]:
+            state, lg = decode_step(blocks, cfg, state,
+                                    token=torch.from_numpy(t), sctx=sctx)
+            logits.append(_np(lg))
+        out[("reference", name)] = (np.stack(logits), ref["logits"])
     return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree

@@ -182,20 +182,26 @@ def test_mesh_arguments_are_checked():
 
 
 def test_sharded_serving_is_dense_only():
-    """Under a ShardCtx, MoE, MLA and recurrent layers raise naming
-    A13.2, before any collective."""
+    """Sharded serving is no longer dense only: MoE, MLA and recurrent
+    layers are not refused under a ShardCtx (ROADMAP A13.2 is ported).
+    On a mesh with no ranks behind it they ask for a ``DeviceMesh``
+    before any collective, and sharded training still raises naming
+    A13.3."""
+    from repro_torch.models import forward
     from repro_torch.serving import decode_step, prefill
     sctx = S.ShardCtx(mesh=S.AbstractMesh((2, 2), ("data", "model")))
     toks = torch.zeros((4, 8), dtype=torch.long)
     for name in ("deepseek-v2-236b", "mixtral-8x22b", "jamba-1.5-large-398b",
                  "xlstm-125m"):
         cfg = port_configs.SMOKE_ARCHS[name]
-        with pytest.raises(NotImplementedError, match="A13.2"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             prefill({}, cfg, tokens=toks, sctx=sctx)
-        with pytest.raises(NotImplementedError, match="A13.2"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             decode_step({}, cfg, {"pos": None}, token=toks[:, 0], sctx=sctx)
-        with pytest.raises(NotImplementedError, match="A13.2"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             init_serve_state(cfg, 4, 16, sctx=sctx, device="meta")
+        with pytest.raises(NotImplementedError, match="A13.3"):
+            forward({}, cfg, tokens=toks, sctx=sctx, remat="full")
 
 
 @pytest.fixture(scope="module", params=[2, 4])

@@ -1,6 +1,8 @@
-"""Sharded serving of the dense-attention configurations (``prefill`` and
-``decode_step`` with ``sctx=``) against the unsharded port and against
-the reference's own sharded decode.
+"""Sharded serving (``prefill`` and ``decode_step`` with ``sctx=``) of the
+dense-attention configurations, and of every configuration in one
+bounded run, against the unsharded port and against the reference's own
+sharded decode (the MoE, MLA and recurrent configurations in depth:
+``test_torch_sharded_arch.py``).
 
 The port runs in a 4-rank gloo world on the CPU, a (data 2, model 2)
 mesh, f32 smoke configs (deepseek-7b, and gemma2-27b with its window,
@@ -9,7 +11,7 @@ teacher-forced decode steps at budgets 0 and 32: the whole batch's
 logits on every rank within ``TOL`` of the unsharded port's (the two sum
 the heads' outputs, the MLP's width and the attention mass in other
 orders), and DAC's control state equal to the unsharded one's after every
-step; the other four dense configurations in serve mode; and gemma2-27b
+step; the other eight configurations in serve mode; and gemma2-27b
 on a (pod 2, data 1, model 2) mesh of the same ranks, with a batch that
 splits and one that does not.
 
@@ -87,7 +89,9 @@ def served(tmp_path_factory):
                          text=True, timeout=TIMEOUT)
     assert run.returncode == 0, run.stderr[-3000:]
     return M.launch_world(worlds.serve_world, 4,
-                          (NAMES, BUDGETS, STEPS, str(ref)),
+                          (NAMES, BUDGETS, STEPS,
+                           {"deepseek-7b": (str(ref), "train")},
+                           ("serve", "train"), worlds.DENSE + worlds.ARCH),
                           init_file=str(tmp / "init"), device="cpu",
                           timeout=TIMEOUT)
 
@@ -101,26 +105,32 @@ def test_sharded_serving_equals_unsharded(served, name, budget, mode):
     control state of every layer, gathered over ``data``, equal to the
     unsharded one's after every step, on every rank."""
     for out in served:
-        got, want, ctrl = out[(name, mode, budget)]
+        row = out[(name, mode, budget)]
+        got, want = row["logits"]
         assert got.shape == want.shape == (STEPS + 1,) + want.shape[1:]
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+        assert row["init_equal"]
         if budget:
-            assert ctrl and all(ctrl)
+            assert row["ctrl_steps"] and row["ctrl_equal"]
     # every rank returned the same logits bit for bit
     for out in served[1:]:
-        np.testing.assert_array_equal(out[(name, mode, budget)][0],
-                                      served[0][(name, mode, budget)][0])
+        np.testing.assert_array_equal(
+            out[(name, mode, budget)]["logits"][0],
+            served[0][(name, mode, budget)]["logits"][0])
 
 
-@pytest.mark.parametrize("name", worlds.DENSE)
+@pytest.mark.parametrize("name", NAMES + worlds.DENSE + worlds.ARCH)
 def test_every_dense_configuration_serves_sharded(served, name):
-    """The other four dense-attention configurations (qkv biases, GQA
-    groups, musicgen's and llava's embeddings in place of tokens) on the
-    (2, 2) mesh in serve mode, bounded: logits within ``TOL`` of the
-    unsharded port's at the prefill and 3 decode steps."""
+    """All ten configurations (qkv biases, GQA groups, musicgen's and
+    llava's embeddings in place of tokens, MLA, MoE, Mamba, mLSTM and
+    sLSTM) on the (2, 2) mesh in serve mode, bounded: logits within
+    ``TOL`` of the unsharded port's at the prefill and every decode
+    step."""
     for out in served:
-        got, want = out[("dense", name)]
+        got, want = (out[(name, "serve", BUDGETS[-1])]["logits"]
+                     if name in NAMES else out[("other", name)])
+        assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
@@ -131,9 +141,9 @@ def test_sharded_serving_on_a_pod_mesh(served, B, rows):
     on every rank when it does not; gemma2-27b's logits within ``TOL``
     of the unsharded port's either way."""
     for out in served:
-        got, want, held = out[("pod", B)]
-        assert held == rows
-        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+        row = out[("pod", B)]
+        assert row["rows"] == rows
+        np.testing.assert_allclose(*row["logits"], rtol=0, atol=TOL)
 
 
 def test_sharded_decode_equals_reference_sharded_decode(served):
@@ -141,6 +151,6 @@ def test_sharded_decode_equals_reference_sharded_decode(served):
     state on a (2, 2) mesh) and the port's, from the same parameters and
     tokens: logits within ``TOL``."""
     for out in served:
-        got, want = out["vs_reference"]
+        got, want = out[("reference", "deepseek-7b")]
         assert got.shape == want.shape == (STEPS, 4, want.shape[-1])
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
