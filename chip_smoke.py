@@ -74,8 +74,9 @@ Phases, one JSON line each:
    costs, at both ``k_for`` regimes (K = 819 / 1,638 for L, 8 / 16 for S;
    families of one K share a replay): the CUDA graph loop gives the same
    hits, byte and penalty totals and final state bit for bit as the plain
-   loop on the CPU (worker processes) and, over the first
-   ``SLOT_EAGER_T`` = 500 requests, as the eager loop on the card; us
+   loop on the CPU (worker processes), every group with lanes that must
+   evict (checked), and, over the first ``SLOT_EAGER_T`` = 128 requests,
+   as the eager loop on the card; us
    per step of the graph and the eager loop; device operations a step
    (``torch.profiler``) on the first group (``graph_sweep.py`` times other
    graph sizes);
@@ -1890,18 +1891,24 @@ def kv_caps_law(dev, k0=64):
 SLOT_POLICIES = ("fifo", "lru", "blru", "lfu", "clock", "sieve", "twoq",
                  "arc", "tinylfu", "hyperbolic", "lirs", "lhd")
 # the slot phase at 2,000 requests (4,000 until the smoke had to fit a
-# slower host than the one it was measured on; PERF.md §4)
+# slower host than the one it was measured on; PERF.md §4): the least at
+# which every L group has lanes that must evict (phase_slot checks it;
+# at 1,000 no lane of the L groups holds more distinct keys than its K)
 SLOT_T = 2_000
-# the eager loop replays the first SLOT_EAGER_T requests only: it is host
-# bound (0.2-4.2 ms a step, PERF.md §5); the graph replays those too
-SLOT_EAGER_T = 500
+# the eager loop replays the first SLOT_EAGER_T requests only (4 graph
+# chunks): it is host bound (0.2-4.2 ms a step, PERF.md §5); the graph
+# replays those too.  Within them only the S groups' lanes must evict, as
+# at 500 and 250 before (the rows' eager_evicting_lanes)
+SLOT_EAGER_T = 128
 SLOT_SEEDS = 3
-# Table III at T = 5,000, a cut from the reference's 60,000: at 20,000 the
+# Table III at T = 3,000, a cut from the reference's 60,000: at 20,000 the
 # phase took 299 s of the smoke's 998 s, and a slower host ran the smoke
 # past its 1,200; at 10,000 it took 156 s of a smoke of 841 s once phase
-# 15 had its CPU world to itself (PERF.md §4 records the choices and the
-# measurements)
-TABLE_T = 5_000
+# 15 had its CPU world to itself; 5,000 until phase 15 trained too (PERF.md
+# §4 records the choices and the measurements).  In the L regime every
+# family but twitter has lanes that must evict from T = 3,000 on (not at
+# 2,000); twitter's first do at ~8,000, so at 5,000 none did either
+TABLE_T = 3_000
 TABLE_SEEDS = (0, 1, 2)
 # benchmarks/mrr_table.py's row order
 TABLE_POLICIES = (
@@ -2025,20 +2032,34 @@ def kernels_a_step(pol, K, reqs, dev):
     return (n[48] - n[16]) / 32
 
 
+def evicting_lanes(keys, K):
+    """Lanes of ``[lanes, T]`` keys with more distinct keys than ``K``:
+    a policy that admits every miss must evict there."""
+    import numpy as np
+    return int(sum(len(np.unique(row)) > K for row in keys))
+
+
 def phase_slot(dev):
     """The twelve slot policies on every dataset family (first SLOT_T
     requests, SLOT_SEEDS seeds, both regimes): the graph loop on the card
     gives the same totals and final state bit for bit as the plain loop on
     the CPU (in worker processes, meanwhile) and, over the first
-    SLOT_EAGER_T requests, as the eager loop on the card.  Times the graph
-    and the eager loop and counts the device operations a step.  Returns a
-    row per policy and group."""
+    SLOT_EAGER_T requests, as the eager loop on the card.  Every group
+    has lanes that must evict within SLOT_T requests, so the comparison
+    covers eviction.  Times the graph and the eager loop and counts the
+    device operations a step.  Returns a row per policy and group."""
     from repro_torch.core import Request, make_policy
     from repro_torch.core import simulator as sim
 
     groups = slot_groups()
     host = {g: slot_inputs(fams, SLOT_T, SLOT_SEEDS)
             for g, fams in groups.items()}
+    evict = {g: (evicting_lanes(host[g][0], g[1]),
+                 evicting_lanes(host[g][0][:, :SLOT_EAGER_T], g[1]))
+             for g in groups}
+    if not all(n for n, _ in evict.values()):
+        raise AssertionError(f"slot phase: a group has no lane that must "
+                             f"evict within {SLOT_T} requests: {evict}")
     jobs = sorted(((spec, g) for g in groups for spec in SLOT_POLICIES),
                   key=lambda j: SLOT_POLICIES.index(j[0]), reverse=True)
     rows = []
@@ -2060,6 +2081,8 @@ def phase_slot(dev):
                 row = {"policy": spec, "regime": regime, "K": K,
                        "lanes": B, "T": SLOT_T, "eager_T": SLOT_EAGER_T,
                        "chunk": sim.GRAPH_CHUNK,
+                       "evicting_lanes": evict[g][0],
+                       "eager_evicting_lanes": evict[g][1],
                        "graph_us_per_step": (g_s - cap_s) * 1e6 / SLOT_T,
                        "graph_capture_s": cap_s, "graph_s": g_s,
                        "eager_us_per_step": e_s * 1e6 / SLOT_EAGER_T,
@@ -2244,12 +2267,14 @@ def phase_corpus(dev):
 # bases one request a launch, inside the CUDA graph loop)
 # ---------------------------------------------------------------------------
 
-# benchmarks/tenant_sweep.py's grid at T = 10,000 (its own T is 60,000: cut
-# to keep the smoke inside its time; PERF.md §4)
-TIER_T = 10_000
-# benchmarks/fleet_sweep.py's grid at half the size of the reference's
-# committed run (experiments/bench/BENCH_fleet.json, T = 16,000)
-FLEET_T = 8_000
+# benchmarks/tenant_sweep.py's grid at T = 6,000 (its own T is 60,000: cut
+# to keep the smoke inside its time, 10,000 until phase 15 trained too;
+# PERF.md §4)
+TIER_T = 6_000
+# benchmarks/fleet_sweep.py's grid at a quarter of the reference's
+# committed run (experiments/bench/BENCH_fleet.json, T = 16,000; 8,000 until
+# phase 15 trained too)
+FLEET_T = 4_000
 # benchmarks/robustness.py's grid (N = 4,096) for the admission policies
 # and their bases, at T = 5,000 (its own T is 40,000; 10,000 until phase
 # 15 came, PERF.md §4)
@@ -3321,8 +3346,10 @@ def train_vs_cpu(dev):
 
 
 def flat_leaves(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    """(path, leaf) of a tree of dicts and lists."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             yield from flat_leaves(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
@@ -3391,7 +3418,8 @@ MG_FLEET_TRACE = dict(N=128, T=2500, n_lanes=8, rate=0.02, mean_session=500,
                       lo=8, seed=0)
 MG_FLEET_REBALANCE = (200, 256)
 MG_SERVE_LAYERS, MG_SERVE_B, MG_SERVE_S = 4, 8, 512
-MG_SERVE_STEPS, MG_SERVE_BUDGET = 16, 512
+# 8 decode steps (16 until phase 15 trained too)
+MG_SERVE_STEPS, MG_SERVE_BUDGET = 8, 512
 MG_F32_LAYERS, MG_F32_S, MG_F32_STEPS = 2, 256, 8
 # the MoE, MLA and recurrent models on (data 2, model 2), full width, depth
 # cut: deepseek-v2-236b's first 2 of 60 layers (MLA + MoE, 80 of its 160
@@ -3967,6 +3995,360 @@ def mg_serve_archs(dev, mesh):
     return out
 
 
+# (b)'s training sub-phase (ROADMAP A13.3) on the (data 2, model 2) mesh of
+# the 4 gloo ranks sharing the card, each rank building its blocks only:
+# (a) deepseek-7b at full width, its depth cut to MG_TRAIN_LAYERS of 30
+# (the only cut), bf16, B = MG_TRAIN_B x MG_TRAIN_S from the token
+# pipeline, MG_TRAIN_STEPS steps through Trainer(sctx=) with f32 moments
+MG_TRAIN_LAYERS, MG_TRAIN_B, MG_TRAIN_S, MG_TRAIN_STEPS = 2, 4, 512, 3
+# (b) the same model in f32 at MG_TRAIN_F32_LAYERS layers, B =
+# MG_TRAIN_F32_B x MG_TRAIN_F32_S, MG_TRAIN_F32_STEPS sharded steps against
+# the unsharded port's on rank 0 (run first and alone): the loss within
+# MG_TRAIN_LOSS_RTOL, rank 0's parameter blocks within
+# TRAIN_VS_CPU_PARAM_REL of each leaf's largest magnitude (Adam's eps at
+# 1e-3, as phase 14's card-against-CPU check, for the same reason); remat
+# "none", which moves no weight twice ((a) runs the trainer's "full")
+MG_TRAIN_F32_LAYERS, MG_TRAIN_F32_B, MG_TRAIN_F32_S = 1, 4, 128
+MG_TRAIN_F32_STEPS = 2
+MG_TRAIN_LOSS_RTOL = 1e-5
+# (c) the compressed step at the smoke config on (pod 2, data 2, model 1),
+# MG_COMP_STEPS steps beside the uncompressed sharded step; its last loss
+# within MG_COMP_TRACK of the uncompressed one's (the reference test's
+# bound); ef_allgather_mean on fixed inputs on the card and on the CPU
+MG_COMP_STEPS, MG_COMP_TRACK = 8, 0.01
+# ... and the cost of ef_allgather_mean's f64 pod sum (compression._pod_sum,
+# there to equal XLA's CPU fused multiply-adds bit for bit) against an f32
+# pass, at one full-width leaf of deepseek-7b (an MLP weight, d_model x
+# d_ff) over 2 pods, on rank 0 while the others wait
+MG_EF_SUM_SHAPE, MG_EF_SUM_REPS = (4096, 11008), 10
+# (d) an elastic restart at the smoke config: MG_ELASTIC_SAVE steps on
+# (data 2, model 2) with a checkpoint, resumed on (data 1, model 2) (ranks
+# 0 and 1) to MG_ELASTIC_STEPS
+MG_ELASTIC_SAVE, MG_ELASTIC_STEPS = 4, 8
+
+
+def mg_train_full(dev, sctx):
+    """(a): ``Trainer(sctx=)`` at full width, bf16, timed a step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"], n_layers=MG_TRAIN_LAYERS)
+    _empty(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=MG_TRAIN_STEPS)
+    tcfg = TrainConfig(steps=MG_TRAIN_STEPS, ckpt_dir=None,
+                       global_batch=MG_TRAIN_B, seq_len=MG_TRAIN_S, seed=SEED)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, tcfg, sctx=sctx)
+    trainer.run()
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if len(hist) != MG_TRAIN_STEPS or not all(math.isfinite(x)
+                                              for x in losses):
+        raise AssertionError(f"sharded train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded train: the loss did not fall: "
+                             f"{losses}")
+    dts = [h["dt"] for h in hist]
+    out = {"arch": cfg.name, "layers": MG_TRAIN_LAYERS,
+           "layers_of_config": ARCHS["deepseek-7b"].n_layers,
+           "params": param_count(cfg), "dtype": cfg.param_dtype,
+           "batch": MG_TRAIN_B, "seq": MG_TRAIN_S, "moments": "float32",
+           "losses": losses, "step_s": dts, "run_s": run_s,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "peak_bytes": (torch.cuda.max_memory_allocated()
+                          if dev == "cuda" else None)}
+    del trainer
+    _empty(dev)
+    return out
+
+
+def mg_train_f32(dev, sctx):
+    """(b): the sharded f32 steps against the unsharded port's on rank 0,
+    which runs first and alone, keeps the cut of its final parameters to
+    its own blocks (on the host) and frees the card's copy."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import init_params, stacked_view
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.sharding import cuts, param_specs
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import placement
+    cfg = dataclasses.replace(ARCHS["deepseek-7b"],
+                              n_layers=MG_TRAIN_F32_LAYERS,
+                              param_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1,
+                      total_steps=MG_TRAIN_F32_STEPS, eps=1e-3)
+    pipe = TokenPipeline(cfg.vocab, MG_TRAIN_F32_B, MG_TRAIN_F32_S,
+                         seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch(t).items()}
+               for t in range(MG_TRAIN_F32_STEPS)]
+    rank = torch.distributed.get_rank()
+    specs = param_specs(param_shapes(cfg), cfg, sctx)
+    mine = cuts(param_shapes(cfg), specs, sctx.mesh)
+    out = {"layers": MG_TRAIN_F32_LAYERS, "batch": MG_TRAIN_F32_B,
+           "seq": MG_TRAIN_F32_S, "steps": MG_TRAIN_F32_STEPS}
+    t0 = time.perf_counter()
+    if rank == 0:
+        whole = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        state = adamw.init(stacked_view(whole, cfg), opt)
+        step = make_train_step(cfg, opt, remat="none")
+        _sync(dev)
+        out["unsharded_init_s"] = time.perf_counter() - t0
+        want_losses, want_step_s = [], []
+        for b in batches:
+            t1 = time.perf_counter()
+            whole, state, m = step(whole, state, b)
+            want_losses.append(float(m["loss"]))
+            want_step_s.append(time.perf_counter() - t1)
+        cut_of = dict(flat_leaves(mine))
+        want = {path: cut_of[path](x.detach()).cpu()
+                for path, x in flat_leaves(whole)}
+        del whole, state, step
+        _empty(dev)
+        out.update(unsharded_s=time.perf_counter() - t0,
+                   unsharded_step_s=want_step_s)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    local = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, sctx=sctx)
+    state = adamw.init(stacked_view(local, cfg), opt, placement(cfg, sctx))
+    step = make_train_step(cfg, opt, sctx=sctx, remat="none")
+    _sync(dev)
+    out["sharded_init_s"] = time.perf_counter() - t0
+    losses, step_s = [], []
+    from repro_torch.models.sharding import _block
+    for b in batches:
+        _sync(dev)
+        t1 = time.perf_counter()
+        local, state, m = step(local, state, {
+            k: _block(v, 0, sctx.mesh, sctx.batch_axes)
+            for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t1)
+    out.update(sharded_s=time.perf_counter() - t0, step_s=step_s,
+               losses=losses,
+               digest=_digest({"losses": __import__("numpy").array(losses)}))
+    if rank == 0:
+        gaps = [abs(g - w) / abs(w) for g, w in zip(losses, want_losses)]
+        if max(gaps) > MG_TRAIN_LOSS_RTOL:
+            raise Mismatch(f"sharded f32 train: losses {losses} against "
+                           f"the unsharded {want_losses}")
+        worst, worst_leaf = 0.0, None
+        for path, x in flat_leaves(local):
+            w = want[path]
+            rel = float((x.detach().cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_leaf = rel, path
+        if worst > TRAIN_VS_CPU_PARAM_REL:
+            raise Mismatch(f"sharded f32 train: rank 0's {worst_leaf} "
+                           f"differs by {worst} of the leaf's largest")
+        out.update(unsharded_losses=want_losses, max_loss_rel_gap=max(gaps),
+                   max_param_rel_gap=worst, worst_leaf=worst_leaf,
+                   param_rel_tol=TRAIN_VS_CPU_PARAM_REL,
+                   loss_rtol=MG_TRAIN_LOSS_RTOL)
+    del local, state, step
+    _empty(dev)
+    torch.distributed.barrier()
+    return out
+
+
+def mg_train_compressed(dev):
+    """(c): the compressed step and the uncompressed sharded step at the
+    smoke config on (pod 2, data 2, model 1); ``ef_allgather_mean`` on
+    fixed inputs on the card and on the CPU (the same gloo group)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params, stacked_view
+    from repro_torch.models.sharding import _block
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import (compression, init_ef_state,
+                                   make_compressed_train_step,
+                                   make_train_step)
+    from repro_torch.train.train_step import placement
+    cfg = SMOKE_ARCHS["deepseek-7b"]
+    mesh = M.make_test_mesh(data=2, model=1, pod=2)
+    sctx = M.shard_ctx(mesh)
+    inner = __import__("dataclasses").replace(sctx, pod=None)
+    opt = AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=0,
+                      weight_decay=0.0)
+    pipe = TokenPipeline(cfg.vocab, 8, 32)
+    t0 = time.perf_counter()
+    runs = {}
+    for kind in ("plain", "compressed"):
+        p = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, sctx=sctx)
+        if kind == "plain":
+            o = adamw.init(stacked_view(p, cfg), opt, placement(cfg, sctx))
+            step = make_train_step(cfg, opt, sctx=sctx)
+        else:
+            place = placement(cfg, inner)
+            o = adamw.init(stacked_view(p, cfg), opt, place)
+            ef = init_ef_state(stacked_view(p, cfg), 2, place)
+            step = make_compressed_train_step(cfg, opt, mesh, sctx=sctx)
+        losses = []
+        for t in range(MG_COMP_STEPS):
+            b = {k: _block(torch.from_numpy(v).to(dev), 0, mesh,
+                           sctx.batch_axes)
+                 for k, v in pipe.batch(t).items()}
+            if kind == "plain":
+                p, o, m = step(p, o, b)
+            else:
+                p, o, ef, m = step(p, o, ef, b)
+            losses.append(float(m["loss"]))
+        runs[kind] = losses
+    gap = abs(runs["plain"][-1] - runs["compressed"][-1])
+    if gap > MG_COMP_TRACK or not all(math.isfinite(x)
+                                      for x in runs["compressed"]):
+        raise AssertionError(f"compressed step: last loss {gap} from the "
+                             f"uncompressed step's ({runs})")
+    rng = np.random.default_rng([SEED, M.axis_index(mesh, "pod"),
+                                 M.axis_index(mesh, "data")])
+    g = rng.standard_normal((3, 1000)).astype(np.float32)
+    e = (rng.standard_normal((3, 1000)) * 1e-2).astype(np.float32)
+    got = [compression.ef_allgather_mean(torch.from_numpy(g).to(d),
+                                         torch.from_numpy(e).to(d), mesh,
+                                         "pod") for d in (dev, "cpu")]
+    for a, b, what in zip(got[0], got[1], ("mean", "error feedback")):
+        if not torch.equal(a.cpu(), b):
+            raise Mismatch(f"ef_allgather_mean's {what}: the card's differs "
+                           "from the CPU's")
+    out = {"arch": cfg.name, "dtype": cfg.param_dtype, "mesh": [2, 2, 1],
+           "steps": MG_COMP_STEPS, "losses": runs, "last_loss_gap": gap,
+           "track": MG_COMP_TRACK, "ef_mean_card_equals_cpu": True}
+    if dev == "cuda" and torch.distributed.get_rank() == 0:
+        out["pod_sum"] = ef_pod_sum_cost(dev)
+    torch.distributed.barrier()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def ef_pod_sum_cost(dev):
+    """Milliseconds of ``compression._pod_sum`` (f64) and of an f32 pass
+    over the same 2 pods' int8 blocks and scales, at MG_EF_SUM_SHAPE."""
+    import torch
+    from repro_torch.train import compression
+    n = math.prod(MG_EF_SUM_SHAPE)
+    blocks = -(-n // compression.BLOCK)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qs = [torch.randint(-127, 128, (blocks, compression.BLOCK),
+                        generator=gen, device=dev).to(torch.int8)
+          for _ in range(2)]
+    ss = [torch.rand(blocks, generator=gen, device=dev) for _ in range(2)]
+
+    def f32():
+        return qs[0].float() * ss[0][:, None] + qs[1].float() * ss[1][:, None]
+
+    out = {"elements": n, "pods": 2,
+           "f64_ms": cuda_ms(lambda: compression._pod_sum(qs, ss),
+                             MG_EF_SUM_REPS),
+           "f32_ms": cuda_ms(f32, MG_EF_SUM_REPS),
+           "max_abs_diff": float((compression._pod_sum(qs, ss) - f32())
+                                 .abs().max())}
+    del qs, ss
+    _empty(dev)
+    return out
+
+
+def mg_train_elastic(dev, ckpt_dir):
+    """(d): a smoke-config run on (data 2, model 2) with a checkpoint,
+    resumed on (data 1, model 2) by ranks 0 and 1."""
+    import torch
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = SMOKE_ARCHS["deepseek-7b"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=MG_ELASTIC_STEPS)
+    tcfg = TrainConfig(steps=MG_ELASTIC_STEPS, ckpt_dir=ckpt_dir,
+                       ckpt_every=MG_ELASTIC_SAVE, global_batch=8,
+                       seq_len=32, seed=SEED, async_ckpt=False)
+    t0 = time.perf_counter()
+    first = Trainer(cfg, opt, tcfg, sctx=M.shard_ctx(M.make_test_mesh(2, 2)))
+    first.run(steps=MG_ELASTIC_SAVE)
+    half = M.make_test_mesh(1, 2)       # every rank builds it; 0 and 1 run
+    out = {"saved_on": [2, 2], "resumed_on": [1, 2],
+           "first": [h["loss"] for h in first.history]}
+    if torch.distributed.get_rank() < 2:
+        second = Trainer(cfg, opt, tcfg, sctx=M.shard_ctx(half))
+        second.run()
+        hist = second.history
+        out["resumed_from"] = hist[0]["step"] if hist else None
+        out["resumed"] = [h["loss"] for h in hist]
+        if out["resumed_from"] != MG_ELASTIC_SAVE or len(hist) != \
+                MG_ELASTIC_STEPS - MG_ELASTIC_SAVE:
+            raise AssertionError(f"elastic restart: resumed {out}")
+        if not out["resumed"][-1] < out["first"][0]:
+            raise AssertionError(f"elastic restart: the loss did not keep "
+                                 f"falling: {out}")
+    torch.distributed.barrier()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mg_train(dev, mesh, tmp):
+    """(b)'s training sub-phase: (a)-(d) above; no B1, B2 or B3 launch.
+    (a) runs first: a world's first full-width step takes ~10 s more
+    than the next (the ranks' first kernel loads, pinned buffers and
+    allocations, each rank waiting on the others' in the collectives),
+    and (b)'s steps then find most of it done (PERF.md, PR 22)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import policy_step as ps
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    launches = (ps.LAUNCHES, fa.LAUNCHES, da.LAUNCHES)
+    sctx = M.shard_ctx(mesh)
+    out = {"full_width": mg_train_full(dev, sctx),
+           "f32": mg_train_f32(dev, sctx),
+           "compressed": mg_train_compressed(dev),
+           "elastic": mg_train_elastic(dev, str(Path(tmp) / "train-ckpt"))}
+    if (ps.LAUNCHES, fa.LAUNCHES, da.LAUNCHES) != launches:
+        raise AssertionError("sharded training launched B1, B2 or B3")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mg_train_summary(rows):
+    """(b)'s training sub-phase over the ranks: every rank's losses are
+    rank 0's; rank 0's checks, each rank's step seconds and peak
+    memory."""
+    first = rows[0]
+    for r, row in enumerate(rows):
+        if row["f32"]["digest"] != first["f32"]["digest"]:
+            raise Mismatch(f"(b) rank {r} sharded f32 train: losses not "
+                           "rank 0's")
+        for part in ("full_width", "compressed"):
+            if row[part]["losses"] != first[part]["losses"]:
+                raise Mismatch(f"(b) rank {r} {part} train: losses not "
+                               "rank 0's")
+    full = dict(first["full_width"])
+    full["step_s"] = [row["full_width"]["step_s"] for row in rows]
+    full["peak_bytes"] = [row["full_width"]["peak_bytes"] for row in rows]
+    full["run_s"] = [row["full_width"]["run_s"] for row in rows]
+    f32 = {k: v for k, v in first["f32"].items() if k != "digest"}
+    f32["step_s"] = [row["f32"]["step_s"] for row in rows]
+    return {"nvidia_smi": nvidia_smi_line(), "full_width": full,
+            "f32": f32, "compressed": first["compressed"],
+            "elastic": first["elastic"],
+            "s": [row["s"] for row in rows]}
+
+
 def mg_probe_gloo(dev):
     """Whether gloo's ``all_gather`` takes a tensor on ``dev`` (the one
     collective the port uses; the gloo ranks on the card rely on it)."""
@@ -4057,6 +4439,7 @@ def mg_world_b(dev, go):
     for k in ("b2_launches", "b3_launches"):
         out["serve"][k] += sum(row[k] for row in archs.values())
     out["serve"]["archs"] = archs
+    out["train"] = mg_train(dev, mesh, Path(go).parent)
     return out
 
 
@@ -4180,6 +4563,7 @@ def phase_multi_gpu(dev, tmp):
     for out in b:
         del out["serve"]["archs"]
     serve = [out["serve"] for out in b]
+    train = mg_train_summary([out.pop("train") for out in b])
     a["fleet"] = {k: {f: v[f] for f in ("s", "T", "b1_launches", "redeals")}
                   for k, v in a["fleet"].items()}
     res["a"] = {"world": 1, **a, "s": a_s}
@@ -4192,7 +4576,7 @@ def phase_multi_gpu(dev, tmp):
                           "s": [out["sweep_s"] for out in b],
                           "b1_launches": [out["sweep_launches"]
                                           for out in b]},
-                "serve": serve, "serve_archs": archs}
+                "serve": serve, "serve_archs": archs, "train": train}
     # the CPU world's seconds: launch to result, the time it ran on after
     # (a) (holding (b) back), and each rank's fleets
     res["cpu_world"] = {"world": MG_WORLD, "s": cpu_s,

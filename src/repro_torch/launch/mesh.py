@@ -17,10 +17,39 @@ spawned processes on one host).
 Backends are explicit.  NCCL, the default on CUDA, needs one GPU a rank:
 asked for more ranks on a host than it has GPUs, :func:`init_distributed`
 raises, and never switches to gloo.  gloo runs on the CPU and for several
-ranks that share one card (its ``all_gather``, the one collective the
-port uses, takes CUDA tensors).  Sums over ranks are all-gathers added in
-a fixed order (:func:`seq_sum`), never a backend's ``all_reduce``, so that
-every rank gets the same bits whatever the backend.
+ranks that share one card (its ``all_gather`` and ``all_to_all``, the
+collectives the port uses, take CUDA tensors).  Sums over ranks are
+all-gathers added in a fixed order (:func:`seq_sum`), never a backend's
+``all_reduce``, so that every rank gets the same bits whatever the
+backend; a reduce-scatter is an ``all_to_all`` of the pieces, added in
+the same order.
+
+Autograd runs through :func:`cat` and :func:`seq_sum`: each rank's
+backward pass computes the transpose of the whole program's forward pass,
+so a value held on several ranks carries, on each, only the part of its
+gradient that flows through that rank's own use of it, and the parts
+meet where a collective's transpose adds them.  The transposes:
+
+* :func:`cat` (a gather of blocks) -> a reduce-scatter: every rank's
+  gradient of this rank's block, added in coordinate order (the block of
+  a :func:`seq_sum` of the wholes, bit for bit; each rank sends each
+  other rank only its block, by ``all_to_all``);
+* :func:`seq_sum` (a sum of partials) -> a :func:`seq_sum` of the
+  gradients: every rank used the sum, so each partial's gradient is the
+  sum of their gradients;
+* a cut of a block (``narrow``, ``sharding._block``) -> zero-padding, the
+  autograd default: the other ranks' blocks of the value's gradient
+  reach it through the collective that made the value.
+
+A leaf held whole on several ranks (a norm's scale, every parameter
+across ``pod``) so ends its backward pass with one part on each; the
+train step adds them over those axes (``train.train_step``).  A
+replicated loss is one function of every rank's values, so each rank
+seeds its backward pass with ``1 / ranks``: the parts then add up to the
+loss's gradient.  Megatron's f/g pairs give every replica the whole
+gradient instead; both conventions give each parameter block the same
+gradient, and this one needs no rule for where a replicated activation
+enters split compute.
 
 Importing this module starts nothing; :func:`init_distributed` records
 the rank's device, which the meshes built after it default to.
@@ -40,7 +69,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["init_distributed", "make_production_mesh", "make_test_mesh",
            "shard_ctx", "check_mesh", "axis_size", "axis_index", "gather",
-           "cat", "seq_sum", "launch_world"]
+           "cat", "seq_sum", "reduce_scatter", "launch_world"]
 
 
 # the device init_distributed() placed this process's rank on
@@ -203,24 +232,110 @@ def gather(x: torch.Tensor, mesh, axis: str) -> list:
     return [t.view(dt) if dt in _CARRY else t for t in ordered]
 
 
+def _coords(mesh, axis, group):
+    """Each member of ``axis``'s group (in the group's rank order): its
+    coordinate along ``axis``."""
+    dim = mesh.mesh_dim_names.index(axis)
+    return [int((mesh.mesh == r).nonzero()[0, dim])
+            for r in dist.get_process_group_ranks(group)]
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0):
+    """This rank's block (along ``dim``, split over ``axis`` in coordinate
+    order) of the sum over ``axis`` of every rank's ``x``, added in
+    coordinate order: bit for bit the block of :func:`seq_sum`, but each
+    rank sends each other rank only that rank's block (one
+    ``all_to_all``)."""
+    group = mesh.get_group(axis)
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    coords = _coords(mesh, axis, group)
+    dt = x.dtype
+    pieces = x.chunk(n, dim)
+    # the group's j-th member gets the piece at its coordinate
+    send = torch.cat([pieces[c].movedim(dim, 0).contiguous().reshape(-1)
+                      for c in coords])
+    if dt in _CARRY:
+        send = send.view(torch.uint8)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if dt in _CARRY:
+        recv = recv.view(dt)
+    shape = pieces[0].movedim(dim, 0).shape
+    got = recv.chunk(n)
+    ordered = [None] * n
+    for j, c in enumerate(coords):
+        ordered[c] = got[j].view(shape)
+    return _ordered_sum(ordered).movedim(0, dim)
+
+
+class _Cat(torch.autograd.Function):
+    """The blocks of every rank along ``axis`` concatenated along ``dim``.
+
+    Adjoint: a reduce-scatter (:func:`reduce_scatter`).  Each rank's
+    gradient of the whole holds the part that flows through its own use
+    of it; this rank's block's gradient is the sum of every rank's
+    gradient at the block's place, added in coordinate order (a
+    :func:`seq_sum` over ``axis``, then this rank's cut, bit for
+    bit)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return torch.cat(gather(x, mesh, axis), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, \
+            None
+
+
+class _SeqSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks along ``axis``, added in
+    coordinate order.
+
+    Adjoint: the same sum of the gradients.  Every rank of the axis used
+    the sum, each holding the gradient of its own use; a partial's
+    gradient is the sum of them all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _ordered_sum(gather(x, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ordered_sum(gather(g, ctx.mesh, ctx.axis)), None, None
+
+
+def _ordered_sum(parts):
+    x = parts[0]
+    for p in parts[1:]:
+        x = x + p
+    return x
+
+
 def cat(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     """The blocks of every rank over ``axes`` concatenated along ``dim``,
     the first axis major (the order a dimension split over ``axes`` is
-    laid out in)."""
+    laid out in).  Differentiable: its adjoint is a reduce-scatter
+    (:class:`_Cat`)."""
+    dim %= x.dim()
     for axis in reversed(tuple(axes)):
-        x = torch.cat(gather(x, mesh, axis), dim=dim)
+        if axis_size(mesh, axis) > 1:
+            x = _Cat.apply(x, mesh, axis, dim)
     return x
 
 
 def seq_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The sum of ``x`` over the ranks along ``axes``, added in coordinate
     order (the last axis first), so that every rank gets the same value
-    bit for bit whatever the backend's reduction order."""
+    bit for bit whatever the backend's reduction order.
+    Differentiable: its adjoint is the same sum of the gradients."""
     for axis in reversed(tuple(axes)):
-        parts = gather(x, mesh, axis)
-        x = parts[0]
-        for p in parts[1:]:
-            x = x + p
+        if axis_size(mesh, axis) > 1:
+            x = _SeqSum.apply(x, mesh, axis)
     return x
 
 

@@ -7,8 +7,22 @@ Weights are random, from a ``torch.Generator`` seeded with the trainer's
 seed; batches come from the stateless token pipeline.  ``--device``
 defaults to ``cuda`` and never falls back to the CPU.  Training runs the
 plain attention, as the reference trains through its jnp attention: kernel
-B2 has no backward.  ``--mesh pod|multipod`` (and a multi-host
-coordinator) are sharded training, ROADMAP A13.3.
+B2 has no backward.
+
+``--mesh pod|multipod`` trains sharded over the production mesh, (data
+16, model 16) or (pod 2, data 16, model 16), one process a rank, each
+started by ``torch.distributed.run`` (which sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``)::
+
+  python -m torch.distributed.run --nnodes 32 --nproc-per-node 8 \
+      --rdzv-backend c10d --rdzv-endpoint HOST:PORT \
+      -m repro_torch.launch.train --arch deepseek-7b --mesh pod
+
+Each rank joins the world through ``launch.mesh.init_distributed`` (NCCL
+on a card), then builds the mesh, which needs 256 (512) ranks and says so
+otherwise.  The reference's ``JAX_COORDINATOR`` (``jax.distributed``'s
+multi-host start) has no counterpart: ``torch.distributed.run``'s
+rendezvous is the coordinator.
 """
 from __future__ import annotations
 
@@ -38,10 +52,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none" or os.environ.get("JAX_COORDINATOR"):
-        ap.error("--mesh pod|multipod and multi-host runs are sharded "
-                 "training, not ported yet (ROADMAP A13.3)")
-
     import torch
 
     from ..configs import get_arch
@@ -51,6 +61,15 @@ def main(argv=None):
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda, but no CUDA device is available")
+    sctx = None
+    if args.mesh != "none":
+        from . import mesh as M
+        if "RANK" in os.environ:        # started by torch.distributed.run
+            dev = M.init_distributed(device=args.device)
+        # a world of one (not started as ranks) is too small: it raises
+        mesh = M.make_production_mesh(multi_pod=args.mesh == "multipod",
+                                      device_type=dev.type)
+        sctx = M.shard_ctx(mesh)
     cfg = get_arch(args.arch, smoke=args.smoke)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                       total_steps=args.steps, moment_dtype=args.moments)
@@ -58,9 +77,15 @@ def main(argv=None):
                        ckpt_every=args.ckpt_every,
                        global_batch=args.batch, seq_len=args.seq,
                        n_microbatches=args.microbatches, remat=args.remat)
-    trainer = Trainer(cfg, opt, tcfg, device=dev)
+    trainer = Trainer(cfg, opt, tcfg, sctx=sctx, device=dev)
     trainer.run()
     hist = trainer.history
+    if sctx is not None:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:
+            return
     if hist:
         print(f"[train] {args.arch}: step {hist[0]['step']}..."
               f"{hist[-1]['step']}  loss {hist[0]['loss']:.4f} -> "

@@ -302,11 +302,12 @@ def param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
-def local_view(cfg: ArchConfig, sctx, B: int):
+def local_view(cfg: ArchConfig, sctx, B: int, train=False):
     """The :class:`~.sharding.Local` view of ``sctx`` for a batch of ``B``
-    sequences."""
+    sequences (``train``: the inputs are each rank's rows)."""
     return sharding.Local(sctx, cfg, B,
-                          sharding.param_specs(param_shapes(cfg), cfg, sctx))
+                          sharding.param_specs(param_shapes(cfg), cfg, sctx),
+                          train)
 
 
 def layer_spec(cfg: ArchConfig, layer: int) -> LayerSpec:
@@ -316,21 +317,23 @@ def layer_spec(cfg: ArchConfig, layer: int) -> LayerSpec:
 def embed_inputs(params, cfg: ArchConfig, tokens=None, embeds=None,
                  loc=None):
     """The stack's input ``[B, ..., d]``; under a mesh (``loc``, a
-    :class:`~.sharding.Local`) this rank's rows of it."""
+    :class:`~.sharding.Local`) this rank's rows of it (in training the
+    inputs are the rank's rows already)."""
     if cfg.embeds_input:
         if embeds is None:
             raise ValueError(f"{cfg.name} takes precomputed embeddings")
         x = embeds.to(cfg.dtype)
-        return x if loc is None else loc.rows(x)
+        return x if loc is None or loc.train else loc.rows(x)
     if loc is None:
         return params["embed"][tokens]
     return loc.embed(params["embed"], tokens)
 
 
-def logits_head(params, cfg: ArchConfig, x, loc=None):
+def logits_head(params, cfg: ArchConfig, x, loc=None, whole=True):
     """Final norm, head (tied or not) and final softcap; f32 logits.
     Under a mesh (``loc``) ``x`` is this rank's rows and the logits are
-    the whole batch's."""
+    the whole batch's, or with ``whole=False`` this rank's block of them
+    (``loc.head``'s rows and vocabulary)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if loc is None:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -339,7 +342,7 @@ def logits_head(params, cfg: ArchConfig, x, loc=None):
     logits = torch.einsum("bsd,dv->bsv", x, head).float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits if loc is None else loc.logits(logits)
+    return logits if loc is None or not whole else loc.logits(logits)
 
 
 def ffn(x, p, cfg: ArchConfig, loc=None, layer=None):
@@ -424,6 +427,21 @@ def _remat(fn, remat):
     return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
+def _stack(params, cfg: ArchConfig, x, impl, remat, want_cache, loc):
+    """The decoder layers on the stack's input ``x``: ``(x, caches)``."""
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    run = _remat(functools.partial(_period, cfg=cfg, positions=positions,
+                                   impl=impl, want_cache=want_cache,
+                                   loc=loc), remat)
+    layers, plen, caches = params["layers"], len(cfg.period), []
+    for first in range(0, len(layers), plen):
+        x, period_caches = run(x, layers[first:first + plen], first)
+        caches += period_caches
+    return x, caches
+
+
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
             impl="kernel", remat="none", want_cache=False, last_only=False,
             sctx=None):
@@ -442,59 +460,73 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None, *,
 
     With ``sctx`` (a :class:`~.sharding.ShardCtx`), ``params`` are this
     rank's blocks of the parameters (``sharding.shard_tree`` under
-    ``param_specs``) and the stack runs sharded over the mesh; its caches
-    and states are this rank's blocks.  Sharded training is ROADMAP
-    A13.3."""
+    ``param_specs``) and the stack runs sharded over the mesh; every rank
+    passes the whole batch and gets the whole batch's logits; its caches
+    and states are this rank's blocks.  The collectives are
+    differentiable, so autograd and ``remat`` run under a mesh too
+    (training takes each rank's rows: :func:`lm_loss`)."""
     loc = None
     if sctx is not None:
-        if remat != "none":
-            raise NotImplementedError(
-                "forward(sctx=..., remat=...): sharded training is not "
-                "ported yet (ROADMAP A13.3)")
         loc = local_view(cfg, sctx,
                          (tokens if tokens is not None else embeds).shape[0])
     x = embed_inputs(params, cfg, tokens, embeds, loc)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    run = _remat(functools.partial(_period, cfg=cfg, positions=positions,
-                                   impl=impl, want_cache=want_cache,
-                                   loc=loc), remat)
-    layers, plen, caches = params["layers"], len(cfg.period), []
-    for first in range(0, len(layers), plen):
-        x, period_caches = run(x, layers[first:first + plen], first)
-        caches += period_caches
+    x, caches = _stack(params, cfg, x, impl, remat, want_cache, loc)
     if last_only:
         x = x[:, -1:]
     logits = logits_head(params, cfg, x, loc)
     return (logits, caches) if want_cache else logits
 
 
-def lm_loss(params, cfg: ArchConfig, batch, *, impl="plain", remat="full"):
+def lm_loss(params, cfg: ArchConfig, batch, *, impl="plain", remat="full",
+            sctx=None):
     """Next-token cross-entropy (port of the reference's ``lm_loss``).
 
     batch: ``{"tokens" | "embeds", "labels", "mask"?}``.  The masked mean of
     the labels' log-probabilities, plus, for an MoE model, 0.01 times the
     mean of :func:`moe.aux_load_balance_loss` over the first period's MoE
-    routers, taken on the raw embedding as the reference does.  ``impl``
-    defaults to the plain attention, the reference's ``"jnp"``: kernel B2
-    has no backward."""
-    logits = forward(params, cfg, tokens=batch.get("tokens"),
-                     embeds=batch.get("embeds"), impl=impl, remat=remat)
-    labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None])[..., 0] - lse
+    routers, taken on the stack's input (the raw embedding) as the
+    reference does.  ``impl`` defaults to the plain attention, the
+    reference's ``"jnp"``: kernel B2 has no backward.
+
+    With ``sctx`` (a :class:`~.sharding.ShardCtx`), ``params`` are this
+    rank's blocks and ``batch`` is this rank's rows of the global batch
+    (split over the ctx's batch axes); the loss is the global one on
+    every rank: the masked sums added over the batch axes, then divided
+    by the global mask count (not a mean of the ranks' means), and the
+    auxiliary term's shares and mean probabilities taken over the whole
+    batch.  Its gradients are each rank's parts (``launch.mesh``)."""
+    tokens, embeds = batch.get("tokens"), batch.get("embeds")
+    loc = None
+    if sctx is not None:
+        rows = (tokens if tokens is not None else embeds).shape[0]
+        loc = local_view(cfg, sctx, rows * sctx._bsz(), train=True)
+    x0 = embed_inputs(params, cfg, tokens, embeds, loc)
+    x, _ = _stack(params, cfg, x0, impl, remat, False, loc)
+    logits = logits_head(params, cfg, x, loc, whole=False)
+    labels = batch["labels"]
+    if loc is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0] - lse
+    else:
+        ll = loc.label_logprobs(logits, labels)
     mask = batch.get("mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total, count = (ll * mask).sum(), mask.sum()
+    if loc is not None:
+        total = loc.sum(total, loc.b_axes)
+        count = loc.sum(count.detach(), loc.b_axes)
+    loss = -total / torch.clamp(count, min=1.0)
     if cfg.moe is not None:
-        x = embed_inputs(params, cfg, batch.get("tokens"),
-                         batch.get("embeds"))
-        aux = [moe.aux_load_balance_loss(x, params["layers"][i]["moe"]
-                                         ["router"], cfg)
-               for i, spec in enumerate(cfg.period)
-               if spec.moe and i < len(params["layers"])
-               and "moe" in params["layers"][i]]
+        aux = []
+        for i, spec in enumerate(cfg.period):
+            if not (spec.moe and i < len(params["layers"])
+                    and "moe" in params["layers"][i]):
+                continue
+            router = params["layers"][i]["moe"]["router"]
+            if loc is not None:
+                rspec = loc.specs["layers"][i]["moe"]["router"]
+                router = loc.use(router, rspec, ((),) * router.dim())
+            aux.append(moe.aux_load_balance_loss(x0, router, cfg, loc))
         if aux:
             loss = loss + 0.01 * sum(aux) / len(aux)
     return loss

@@ -111,14 +111,17 @@ def moe_apply(x, p, cfg, loc=None, layer=None):
     shared ones.
 
     Under a mesh (``loc``, a ``sharding.Local``; ``p`` layer ``layer``'s
-    weights from ``loc.layer``) ``x`` is this rank's rows.  They are
-    gathered into the whole batch, so that routing, capacity and drops
-    are the unsharded ones (at decode the whole batch is one dispatch
-    group); the rank runs its experts on its block of their width, the
-    partial outputs (in x's dtype) are summed over the expert and width
-    axes, and the rank's rows taken back.  The shared experts are a dense
-    MLP on the rank's block of their width, their partial output summed
-    with the routed one's where the two split over the same axes."""
+    weights from ``loc.layer``) ``x`` is this rank's rows.  Serving
+    gathers them into the whole batch, so that routing, capacity and
+    drops are the unsharded ones (at decode the whole batch is one
+    dispatch group); training (``loc.train``) routes each rank's rows,
+    whose groups (sequences) are whole on it, gathered only over the
+    batch axes the experts or their width split over.  The rank runs its
+    experts on its block of their width, the partial outputs (in x's
+    dtype) are summed over the expert and width axes, and the rank's rows
+    taken back.  The shared experts are a dense MLP on the rank's block
+    of their width, their partial output summed with the routed one's
+    where the two split over the same axes."""
     act = cfg.act
 
     def shared(h):
@@ -128,22 +131,33 @@ def moe_apply(x, p, cfg, loc=None, layer=None):
         out = _routed(x, p, cfg).to(x.dtype)
         return out + shared(x) if cfg.moe.n_shared else out
     first, axes = loc.experts(layer)
-    whole = loc.cat(x, loc.b_axes)
+    g = loc._batch_axes_of(axes) if loc.train else loc.b_axes
+    whole = loc.cat(x, g) if g else x
     out = _routed(whole, p, cfg, first).to(x.dtype)
     if not cfg.moe.n_shared:
-        return loc.reduce(out, axes, loc.b_axes)
+        return loc.reduce(out, axes, g)
     s_axes = loc.shared_axes(layer)
     if s_axes == axes:                  # one sum for both partials
-        return loc.reduce(out + shared(whole), axes, loc.b_axes)
-    return (loc.reduce(out, axes, loc.b_axes)
+        return loc.reduce(out + shared(whole), axes, g)
+    return (loc.reduce(out, axes, g)
             + loc.mlp(s_axes, x, shared))
 
 
-def aux_load_balance_loss(x, router_w, cfg):
+def aux_load_balance_loss(x, router_w, cfg, loc=None):
     """Switch-style load-balance auxiliary loss, ``E * sum_e f_e * P_e``:
     f_e the share of tokens whose first choice is expert e, P_e the mean
-    router probability of e.  Its gradient flows through P only."""
+    router probability of e.  Its gradient flows through P only.
+
+    Under a mesh (``loc``) ``x`` is this rank's rows and ``router_w`` the
+    whole router: f and P are means over the whole batch, their sums
+    added over the batch axes before the product."""
     m = cfg.moe
     idx, _, probs = route(x, router_w, cfg)
-    frac = F.one_hot(idx[..., 0], m.n_experts).float().mean(dim=(0, 1))
-    return (frac * probs.mean(dim=(0, 1))).sum() * m.n_experts
+    frac = F.one_hot(idx[..., 0], m.n_experts).float()
+    if loc is None:
+        return (frac.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum() \
+            * m.n_experts
+    n = loc.B * x.shape[1]              # the whole batch's tokens
+    frac = loc.sum(frac.sum(dim=(0, 1)), loc.b_axes) / n
+    mean_p = loc.sum(probs.sum(dim=(0, 1)), loc.b_axes) / n
+    return (frac * mean_p).sum() * m.n_experts

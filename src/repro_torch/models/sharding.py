@@ -34,6 +34,14 @@ projection's placement (:class:`Channels`); any other split dimension,
 such as FSDP's, gathered before use.  Sums over ranks add in a fixed
 order, so every rank of an axis holds the same values bit for bit.
 
+Training (``model.lm_loss(sctx=)``) runs the same path under autograd on
+each rank's rows of the batch (a :class:`Local` with ``train=True``):
+the collectives are differentiable (``launch.mesh``: a gather's adjoint
+is a reduce-scatter, a sum's a sum), MoE routes each rank's own rows (a
+dispatch group is a sequence), and the loss's log-probabilities are
+taken from each rank's block of the vocabulary
+(:meth:`Local.label_logprobs`), so no rank gathers the logits.
+
 A projection whose output is several components side by side (``PARTS``:
 Mamba's ``in_proj`` ``[x | z]``, mLSTM's ``up_proj``, sLSTM's gates ``W``)
 splits each component over the axes its placement names, so that a
@@ -49,7 +57,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 __all__ = ["ShardCtx", "AbstractMesh", "mesh_shape", "param_specs",
-           "serve_state_shardings", "shard_tree", "Cut", "Local", "Channels"]
+           "serve_state_shardings", "shard_tree", "cuts", "Cut", "Local",
+           "Channels"]
 
 # projections whose last dimension holds this many components side by side
 PARTS = {"in_proj": 2, "up_proj": 2, "W": 4}
@@ -370,6 +379,17 @@ def _block(x, dim, mesh, axes, parts=1):
     return x.narrow(dim, idx * (size // n), size // n)
 
 
+def _cat(x, mesh, axes, dim, parts=1):
+    """The blocks of ``x`` over ``axes`` concatenated along ``dim`` (of
+    ``parts`` components, each concatenated)."""
+    from ..launch.mesh import cat
+    dim %= x.dim()
+    if parts == 1:
+        return cat(x, mesh, axes, dim)
+    x = x.unflatten(dim, (parts, x.shape[dim] // parts))
+    return cat(x, mesh, axes, dim + 1).flatten(dim, dim + 1)
+
+
 def _parts(name, dim, ndim):
     """The components of dimension ``dim`` of leaf ``name``."""
     return PARTS.get(name, 1) if dim == ndim - 1 else 1
@@ -389,6 +409,19 @@ def shard_tree(tree, specs, mesh):
     return walk(tree, specs)
 
 
+def cuts(shapes, specs, mesh):
+    """The tree of :class:`Cut` of every leaf of ``shapes`` (a tree whose
+    leaves have a ``shape``: the whole leaves') under ``specs``."""
+    def walk(t, s, keys=()):
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k], keys + (k,)) for k in t}
+        if isinstance(t, list):
+            return [walk(a, b, keys) for a, b in zip(t, s)]
+        return Cut(s, tuple(t.shape), mesh, keys[-1])
+
+    return walk(shapes, specs)
+
+
 class Cut:
     """This rank's block of a leaf of full shape ``shape`` named ``name``
     under placement ``spec``: :meth:`__call__` cuts it from the whole
@@ -398,13 +431,55 @@ class Cut:
     cuts are views where the layout allows."""
 
     def __init__(self, spec, shape, mesh, name=""):
-        self.spec, self.mesh = spec, mesh
+        self.spec, self.mesh, self.full = spec, mesh, tuple(shape)
         idx, n = _index(mesh, _axes(spec[0]))
         self.rows = (idx * (shape[0] // n), shape[0] // n)
         nd = len(shape)
         self.shape = tuple(
             size // _index(mesh, _axes(e))[1] for size, e in zip(shape, spec))
         self._parts = [_parts(name, d, nd) for d in range(nd)]
+
+    @property
+    def axes(self) -> tuple:
+        """Every axis the leaf splits over (it is whole across the
+        others)."""
+        return tuple(a for e in self.spec for a in _axes(e))
+
+    @property
+    def run(self) -> int:
+        """The length of the runs the block's elements make in the whole
+        leaf's flattening (the runs start at multiples of it): the
+        innermost split dimension's block extent (a component's, for a
+        dimension of several) times the whole extents inside it; the
+        whole leaf's size if nothing splits.  A blockwise quantization
+        of the whole leaf's flattening (``optim.adamw``,
+        ``train.compression``) is the block's own where its block size
+        divides the run, also for a stack of such leaves."""
+        run = math.prod(self.full)
+        inner = 1
+        for d in reversed(range(len(self.full))):
+            if _axes(self.spec[d]):
+                return inner * self.shape[d] // self._parts[d]
+            inner *= self.full[d]
+        return run
+
+    def whole(self, x, lead=0):
+        """The whole leaf from the blocks ``x`` of every rank (``lead``
+        leading dimensions, such as a stack's, before the leaf's own);
+        every rank runs it."""
+        for dim, entry in enumerate(self.spec):
+            if _axes(entry):
+                x = _cat(x, self.mesh, _axes(entry), dim + lead,
+                         self._parts[dim])
+        return x
+
+    def cut(self, x, lead=0):
+        """:meth:`__call__` of a stack of whole leaves (``lead`` leading
+        dimensions)."""
+        for dim, entry in enumerate(self.spec):
+            x = _block(x, dim + lead, self.mesh, _axes(entry),
+                       self._parts[dim])
+        return x
 
     def inner(self, x):
         """The block's columns (every dimension but the first) of rows
@@ -414,8 +489,7 @@ class Cut:
         return x
 
     def __call__(self, x):
-        x = _block(x, 0, self.mesh, _axes(self.spec[0]), self._parts[0])
-        return self.inner(x)
+        return self.cut(x)
 
 
 def _mlp_want(f):
@@ -437,11 +511,17 @@ class Local:
     the query and the KV heads divide it; otherwise every model rank runs
     all heads.  The MLP's width, the vocabulary and MoE's experts and
     their width split over the axes their placements name; a recurrent
-    layer's channels as :meth:`channels` says."""
+    layer's channels as :meth:`channels` says.
 
-    def __init__(self, sctx: ShardCtx, cfg, B: int, specs):
+    ``train``: the inputs are this rank's rows of the batch already (of
+    ``B`` in all), and MoE routes each rank's rows, a sequence being a
+    dispatch group (serving gathers the batch, so that a decode step's
+    one group is the whole batch)."""
+
+    def __init__(self, sctx: ShardCtx, cfg, B: int, specs, train=False):
         from ..launch.mesh import check_mesh
         self.sctx, self.cfg, self.B, self.specs = sctx, cfg, int(B), specs
+        self.train = bool(train)
         self.mesh = check_mesh(sctx.mesh)
         self.b_axes = sctx.batch_axes if B % sctx._bsz() == 0 else ()
         tp_n = sctx.axis_size(sctx.tp)
@@ -488,12 +568,7 @@ class Local:
     def cat(self, x, axes, dim=0, parts=1):
         """The blocks of ``x`` over ``axes`` concatenated along ``dim``
         (of ``parts`` components, each concatenated)."""
-        from ..launch.mesh import cat
-        if parts == 1:
-            return cat(x, self.mesh, axes, dim)
-        dim %= x.dim()
-        x = x.unflatten(dim, (parts, x.shape[dim] // parts))
-        return cat(x, self.mesh, axes, dim + 1).flatten(dim, dim + 1)
+        return _cat(x, self.mesh, axes, dim, parts)
 
     def sum(self, x, axes):
         from ..launch.mesh import seq_sum
@@ -594,13 +669,23 @@ class Local:
     def embed(self, table, tokens):
         """Embedding rows of this rank's batch: the vocabulary split over
         :attr:`v_axes`' placement in the table, each rank looking up the
-        tokens in its block and the blocks summed (one nonzero row
-        each)."""
+        tokens in its block and the blocks summed (one nonzero row each).
+        Where the table's model dimension splits over batch axes (FSDP's
+        placement), the table is not gathered: each rank looks up the
+        rows of every rank along those axes in its columns, and the
+        columns are gathered, so that the table's gradient stays on its
+        rank (a lookup's scatter) instead of a table-sized reduce-scatter.
+        The rows are the same bits either way."""
         spec = self.specs["embed"]
         v_axes = _axes(spec[0])
-        table = self.use(table, spec, (v_axes, ()))
+        keep = self._batch_axes_of(_axes(spec[1]))
+        table = self.use(table, spec, (v_axes, keep))
         g = self._batch_axes_of(v_axes)
-        tok = self.rows(tokens, tuple(a for a in self.b_axes if a not in g))
+        if self.train:                  # the rank's rows already
+            tok = self.cat(tokens, g + keep) if g + keep else tokens
+        else:
+            tok = self.rows(tokens, tuple(a for a in self.b_axes
+                                          if a not in g + keep))
         idx, n = _index(self.mesh, v_axes)
         rows = table.shape[0]
         local = tok.long() - idx * rows
@@ -608,7 +693,10 @@ class Local:
         x = table[local.clamp(0, rows - 1)]
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
-        return self.reduce(x, v_axes, g)
+        x = self.reduce(x, v_axes, g)
+        if keep:
+            x = self.rows(self.cat(x, keep, dim=-1), keep)
+        return x
 
     def heads_sum(self, x):
         """A sum over the attention heads of each model rank's partial
@@ -690,6 +778,31 @@ class Local:
             head = self.use(params["lm_head"], spec, ((), v))
         g = self._batch_axes_of(v)
         return (self.cat(x, g) if g else x), head
+
+    def label_logprobs(self, logits, labels):
+        """The log-probabilities of ``labels`` (this rank's rows) from
+        this rank's block of the logits (:meth:`head`'s rows and
+        vocabulary), on this rank's rows: the log-sum-exp and the label's
+        logit summed over the vocabulary's axes, each rank's block's
+        max shifting its terms (the max over the blocks, held
+        constant), so that no rank gathers the logits."""
+        from ..launch.mesh import cat
+        v = self.v_axes
+        g = self._batch_axes_of(v)
+        if g:
+            labels = self.cat(labels, g)
+        idx, _ = _index(self.mesh, v)
+        vb = logits.shape[-1]
+        with torch.no_grad():
+            m = cat(logits.amax(-1)[None], self.mesh, v).amax(0)
+        se = self.sum(torch.exp(logits - m[..., None]).sum(-1), v)
+        local = labels.long() - idx * vb
+        inside = (local >= 0) & (local < vb)
+        picked = logits.gather(-1, local.clamp(0, vb - 1)[..., None])[..., 0]
+        picked = self.sum(torch.where(inside, picked, torch.zeros(
+            (), dtype=picked.dtype, device=picked.device)), v)
+        ll = picked - (m + torch.log(se))
+        return self.rows(ll, g) if g else ll
 
     def logits(self, out):
         """The whole batch's logits ``[B, S, V]`` from this rank's block

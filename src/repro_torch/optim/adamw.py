@@ -20,6 +20,19 @@ layers, so quantizing each layer alone would give other ``q`` and
 The moment quantization is symmetric blockwise (block 64 along the
 flattened leaf) with f32 scales; the second moment is quantized in the
 sqrt domain (``quantize(..., sqrt_domain=True)``).
+
+Under a mesh (``place``: a tree of ``models.sharding.Cut`` in the
+parameters' stacked structure, one for each leaf's whole shape and
+placement) the parameters, gradients and moments are this rank's blocks,
+the moments' blocks following their parameters' placement.  The global
+norm adds each leaf's squares over the axes it splits over, counting a
+copy held whole on several ranks once, so that the clip scale is the same
+on every rank and the unsharded one.  An int8 moment is the whole leaf's
+quantization in blocks along its flattening: where the rank's elements
+make runs of whole blocks (``Cut.run``), the block's own; elsewhere the
+leaf is updated whole on every rank (its gradient and parameter
+gathered) and its moments held whole, since quantizing the block alone
+would give other ``q`` and ``scale``.
 """
 from __future__ import annotations
 
@@ -29,7 +42,7 @@ import math
 import torch
 
 __all__ = ["BLOCK", "AdamWConfig", "schedule", "quantize", "dequantize",
-           "init", "global_norm", "update"]
+           "init", "global_norm", "update", "whole_state", "cut_state"]
 
 BLOCK = 64
 
@@ -86,7 +99,10 @@ def quantize(x, sqrt_domain: bool = False):
         flat = _sqrt(torch.clamp(flat, min=0.0))
     flat = torch.nn.functional.pad(flat, (0, -flat.numel() % BLOCK))
     flat = flat.reshape(-1, BLOCK)
-    scale = flat.abs().amax(dim=1) / 127.0
+    # the divisor on the device: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, which can round otherwise
+    scale = flat.abs().amax(dim=1) / torch.full(
+        (), 127.0, dtype=torch.float32, device=flat.device)
     q = torch.round(flat / torch.clamp(scale[:, None], min=1e-20))
     return {"q": q.to(torch.int8), "scale": scale}
 
@@ -140,46 +156,98 @@ def _stacked(p):
     return torch.stack(p) if isinstance(p, list) else p
 
 
+def _cut_of(pl):
+    """The leaf's ``Cut`` (a list leaf's slices share one), or None."""
+    return pl[0] if isinstance(pl, list) else pl
+
+
+def _lead(p):
+    """The leading dimensions a leaf's stack adds before the layer's."""
+    return 1 if isinstance(p, list) else 0
+
+
+def _local_moments(cut, dtype) -> bool:
+    """Whether a leaf's moments are its block's (else whole: int8 where
+    the rank's runs are not whole quantization blocks)."""
+    return (cut is None or dtype != "int8" or not cut.axes
+            or cut.run % BLOCK == 0)
+
+
 # --- optimizer --------------------------------------------------------------
 
-def init(params, cfg: AdamWConfig):
-    def zero_like(p):
-        z = torch.zeros(_shape(p), dtype=torch.float32, device=_device(p))
+def _moment_shape(p, pl, dtype):
+    cut = _cut_of(pl)
+    if _local_moments(cut, dtype):
+        return _shape(p)
+    return _shape(p)[:_lead(p)] + cut.full
+
+
+def init(params, cfg: AdamWConfig, place=None):
+    """Zero moments (f32, or int8's ``{"q", "scale"}``) and step 0; under
+    a mesh (``place``) each leaf's block's, or its whole leaf's (see the
+    module's docstring)."""
+    def zero_like(p, pl=None):
+        z = torch.zeros(_moment_shape(p, pl, cfg.moment_dtype),
+                        dtype=torch.float32, device=_device(p))
         return _wrap_moment(z, cfg.moment_dtype)
 
     first = next(_leaves(params))
-    return {"m": _map(zero_like, params), "v": _map(zero_like, params),
+    trees = (params,) if place is None else (params, place)
+    return {"m": _map(zero_like, *trees), "v": _map(zero_like, *trees),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=_device(first))}
 
 
-def global_norm(tree):
+def global_norm(tree, place=None):
     """sqrt of the sum of squares of every element, in f32 (a list leaf
-    counts each slice)."""
-    sq = []
-    for leaf in _leaves(tree):
-        for x in (leaf if isinstance(leaf, list) else [leaf]):
-            sq.append(x.float().square().sum())
-    return _sqrt(torch.stack(sq).sum())
+    counts each slice).  Under a mesh (``place``) each leaf's sum is
+    added over the axes the leaf splits over, the leaves grouped by
+    those axes (one sum a group), in the same order on every rank."""
+    sq, groups, pairs = [], {}, []
+    if place is None:
+        pairs = [(leaf, None) for leaf in _leaves(tree)]
+    else:                               # paired by key, not by order
+        _map(lambda leaf, pl: pairs.append((leaf, pl)), tree, place)
+    for leaf, pl in pairs:
+        part = [x.float().square().sum()
+                for x in (leaf if isinstance(leaf, list) else [leaf])]
+        if pl is None:
+            sq += part
+        else:
+            groups.setdefault(_cut_of(pl).axes, []).append(
+                torch.stack(part).sum())
+    if place is None:
+        return _sqrt(torch.stack(sq).sum())
+    from ..launch.mesh import seq_sum
+    mesh = _cut_of(next(_leaves(place))).mesh
+    total = [seq_sum(torch.stack(parts).sum(), mesh, axes)
+             for axes, parts in groups.items()]
+    return _sqrt(torch.stack(total).sum())
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig):
+def update(grads, state, params, cfg: AdamWConfig, place=None):
     """One AdamW step: writes the new values into ``params``' tensors and
-    returns ``(params, new_state, {"lr", "grad_norm"})``."""
+    returns ``(params, new_state, {"lr", "grad_norm"})``.  Under a mesh
+    (``place``) each rank passes its blocks and its leaves' whole
+    gradients' blocks (every replica's parts added)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, place)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.clip_norm else 1.0
 
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
 
-    def leaf(p, g, m, v):
-        shape = _shape(p)
+    def leaf(p, g, m, v, pl=None):
+        cut, lead = _cut_of(pl), _lead(p)
+        whole = not _local_moments(cut, cfg.moment_dtype)
         pf = _stacked(p).float()
         g = _stacked(g).float() * scale
+        if whole:                       # gathered, updated on every rank
+            pf, g = cut.whole(pf, lead), cut.whole(g, lead)
+        shape = tuple(pf.shape)
         m_f = _unwrap_moment(m, shape, cfg.moment_dtype)
         v_f = _unwrap_moment(v, shape, cfg.moment_dtype, sqrt_domain=True)
         m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
@@ -189,6 +257,8 @@ def update(grads, state, params, cfg: AdamWConfig):
         upd = upd + cfg.weight_decay * pf
         new_p = pf - lr * upd
         del upd, pf
+        if whole:
+            new_p = cut.cut(new_p, lead)
         if isinstance(p, list):
             for dst, src in zip(p, new_p):
                 dst.copy_(src)
@@ -197,8 +267,71 @@ def update(grads, state, params, cfg: AdamWConfig):
         return (_wrap_moment(m_f, cfg.moment_dtype),
                 _wrap_moment(v_f, cfg.moment_dtype, sqrt_domain=True))
 
-    out = _map(leaf, params, grads, state["m"], state["v"])
+    trees = (params, grads, state["m"], state["v"])
+    out = _map(leaf, *(trees if place is None else trees + (place,)))
     new_m = _map(lambda pair: pair[0], out)
     new_v = _map(lambda pair: pair[1], out)
     return params, {"m": new_m, "v": new_v, "step": step}, \
         {"lr": lr, "grad_norm": gnorm}
+
+
+# --- a rank's state and the whole one ----------------------------------------
+
+def _moment_whole(m, cut, shape, lead, dtype):
+    """A moment from a rank's block (every rank runs it)."""
+    if not _local_moments(cut, dtype) or not cut.axes:
+        return m
+    if dtype != "int8":
+        return cut.whole(m, lead)
+    # each of the block's quantization blocks lies whole in one of the
+    # leaf's: gather q by its elements, the scales one an element
+    q = cut.whole(m["q"].reshape(shape), lead).reshape(-1, BLOCK)
+    per = m["scale"].repeat_interleave(BLOCK).reshape(shape)
+    return {"q": q, "scale": cut.whole(per, lead).reshape(-1, BLOCK)[:, 0]
+            .contiguous()}
+
+
+def _moment_cut(m, cut, shape, lead, dtype):
+    """A rank's block of a whole moment (``shape``: the whole stacked
+    leaf's)."""
+    if not _local_moments(cut, dtype) or not cut.axes:
+        return m
+    if dtype != "int8":
+        return cut.cut(m, lead).contiguous()
+    q = cut.cut(m["q"].reshape(shape), lead).reshape(-1, BLOCK)
+    per = m["scale"].repeat_interleave(BLOCK).reshape(shape)
+    return {"q": q.contiguous(),
+            "scale": cut.cut(per, lead).reshape(-1, BLOCK)[:, 0]
+            .contiguous()}
+
+
+def whole_state(state, params, place, cfg: AdamWConfig):
+    """The optimizer state of the whole model (the unsharded layout, as a
+    checkpoint holds it) from this rank's (``init(params, cfg, place)``'s
+    layout; ``params`` this rank's blocks, for the shapes).  Every rank
+    runs it: it gathers over the mesh."""
+    def leaf(p, m, v, pl):
+        cut, lead = _cut_of(pl), _lead(p)
+        shape = _shape(p)
+        return tuple(_moment_whole(x, cut, shape, lead, cfg.moment_dtype)
+                     for x in (m, v))
+
+    out = _map(leaf, params, state["m"], state["v"], place)
+    return {"m": _map(lambda pair: pair[0], out),
+            "v": _map(lambda pair: pair[1], out), "step": state["step"]}
+
+
+def cut_state(state, params, place, cfg: AdamWConfig):
+    """This rank's optimizer state (``init(params, cfg, place)``'s layout)
+    from the whole model's (a checkpoint's), for the mesh of ``place``:
+    the inverse of :func:`whole_state`, for any mesh, so that a run saved
+    on one mesh resumes on another."""
+    def leaf(p, m, v, pl):
+        cut, lead = _cut_of(pl), _lead(p)
+        shape = _shape(p)[:lead] + cut.full
+        return tuple(_moment_cut(x, cut, shape, lead, cfg.moment_dtype)
+                     for x in (m, v))
+
+    out = _map(leaf, params, state["m"], state["v"], place)
+    return {"m": _map(lambda pair: pair[0], out),
+            "v": _map(lambda pair: pair[1], out), "step": state["step"]}

@@ -1,7 +1,9 @@
-"""Training (port of ``train/``): the train step, the trainer with
-checkpoints and resume, the straggler watchdog.  The compressed multi-pod
-step is sharded training, ROADMAP A13.3."""
-from .train_step import make_train_step
+"""Training (port of ``train/``): the train step, sharded over a mesh or
+not, the compressed multi-pod step, the trainer with checkpoints, resume
+and elastic restarts, the straggler watchdog."""
+from .train_step import (init_ef_state, make_compressed_train_step,
+                         make_train_step)
 from .trainer import StragglerWatchdog, TrainConfig, Trainer
 
-__all__ = ["make_train_step", "Trainer", "TrainConfig", "StragglerWatchdog"]
+__all__ = ["make_train_step", "make_compressed_train_step", "init_ef_state",
+           "Trainer", "TrainConfig", "StragglerWatchdog"]

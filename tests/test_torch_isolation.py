@@ -51,6 +51,7 @@ def test_port_modules_import_without_jax_or_reference():
             "repro_torch.optim.adamw", "repro_torch.checkpoint",
             "repro_torch.checkpoint.manager", "repro_torch.train",
             "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.train.compression",
             "repro_torch.launch.train"} <= set(MODULES)
     # and the multi-GPU slice's
     assert {"repro_torch.launch.mesh",

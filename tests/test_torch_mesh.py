@@ -185,8 +185,8 @@ def test_sharded_serving_is_dense_only():
     """Sharded serving is no longer dense only: MoE, MLA and recurrent
     layers are not refused under a ShardCtx (ROADMAP A13.2 is ported).
     On a mesh with no ranks behind it they ask for a ``DeviceMesh``
-    before any collective, and sharded training still raises naming
-    A13.3."""
+    before any collective; so does a rematerialised forward, which
+    sharded training runs (A13.3 is ported: it no longer raises)."""
     from repro_torch.models import forward
     from repro_torch.serving import decode_step, prefill
     sctx = S.ShardCtx(mesh=S.AbstractMesh((2, 2), ("data", "model")))
@@ -200,7 +200,7 @@ def test_sharded_serving_is_dense_only():
             decode_step({}, cfg, {"pos": None}, token=toks[:, 0], sctx=sctx)
         with pytest.raises(TypeError, match="DeviceMesh"):
             init_serve_state(cfg, 4, 16, sctx=sctx, device="meta")
-        with pytest.raises(NotImplementedError, match="A13.3"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             forward({}, cfg, tokens=toks, sctx=sctx, remat="full")
 
 

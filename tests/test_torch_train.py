@@ -527,9 +527,14 @@ def test_token_pipeline_stateless_and_host_sharded():
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A13"):
+    """``Trainer(sctx=)`` trains sharded (``test_torch_elastic.py``); a
+    ShardCtx whose mesh is not a ``DeviceMesh`` raises the mesh's
+    ``TypeError`` before anything is built."""
+    from repro_torch.models.sharding import AbstractMesh, ShardCtx
+    sctx = ShardCtx(mesh=AbstractMesh((2, 2), ("data", "model")))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(SMOKE_ARCHS["deepseek-7b"], AdamWConfig(), TrainConfig(),
-                sctx=object(), device="cpu")
+                sctx=sctx, device="cpu")
 
 
 # --- checkpoints -------------------------------------------------------------
@@ -629,7 +634,8 @@ def test_launch_train_end_to_end(tmp_path):
 
 def test_launch_train_needs_cuda_by_default(tmp_path):
     """``--device`` defaults to cuda and does not fall back to the CPU;
-    a mesh names A13."""
+    ``--mesh pod`` outside a world of ranks fails on the production
+    mesh's size (256 ranks)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     out = _train_cli("--arch", "deepseek-7b", "--smoke", "--steps", "1",
@@ -637,4 +643,4 @@ def test_launch_train_needs_cuda_by_default(tmp_path):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     out = _train_cli("--arch", "deepseek-7b", "--smoke", "--mesh", "pod",
                      "--device", "cpu", "--ckpt-dir", str(tmp_path))
-    assert out.returncode != 0 and "A13" in out.stderr
+    assert out.returncode != 0 and "need 256 devices" in out.stderr
