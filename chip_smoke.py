@@ -170,7 +170,19 @@ Phases, one JSON line each:
    with the kernels against the unsharded path and against the sharded
    plain versions (logits within 1e-4, DAC's control equal unless a
    near-tie is reported); µs a fleet step sharded and unsharded, ms a
-   re-deal, prefill s and decode ms a step.
+   re-deal, prefill s and decode ms a step;
+16. analysis (``repro_torch.analysis``; it runs after phase 14, before 15):
+   the contract pass over the 30 registry specs, the budgeted DAC and
+   ``admit(dac)``, the tier and the fleet on the card, each step captured
+   into a CUDA graph under ``set_sync_debug_mode("error")`` and its replay
+   equal to the eager step bit for bit, and the float64-default-dtype
+   sub-pass (64 captures in all); the retrace audit of dac (B1: 7
+   launches, one library load) and lru (the graph loop: 7 captures) over
+   the nine canonical calls at T = 67 and the six equivalent spellings;
+   the linter over the checkout; no finding from any of them; then three
+   toy steps as controls (a clean one; a host read, caught by the op
+   record and by the capture; a host counter baked into the graph,
+   caught by the replay); B1's launches in the phase counted (51).
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -357,7 +369,7 @@ def step_cases(K, fill, pid, rng):
         else:   # DAC: active size k <= kmax = K, ranks >= k EMPTY
             k = max(1, K >> int(rng.integers(0, 3)))
         n = {"empty": 0, "mid": k // 2, "full": k}[fill]
-        rows[b, :n] = rng.permutation(10 * K + 10)[:n]
+        rows[b, :n] = rng.choice(10 * K + 10, n, replace=False)
         kind = b % 4
         if kind == 0 or n == 0:
             keys[b] = 10 * K + 20 + b                 # miss
@@ -3403,6 +3415,149 @@ def phase_train(dev):
     return res
 
 
+# -- phase 16: the analysis layer --------------------------------------------
+
+def analysis_toys():
+    """Three toy slot policies over one ``cache`` row for phase 16's
+    controls: a clean step, one that reads a value to the host
+    (``.item()``), and one that bakes a host counter into its output
+    (equal to the eager step until it is captured)."""
+    import torch
+
+    from repro_torch.core import Policy, padded_row, step_info
+
+    class Toy(Policy):
+        name = "toy"
+
+        def init(self, K, lanes=1, device="cuda"):
+            return {"cache": padded_row(K, lanes, device)}
+
+        def step(self, state, req):
+            cache = state["cache"]
+            hit = (cache == req.key.unsqueeze(-1)).any(-1)
+            first = torch.where(hit, cache[:, 0], req.key)
+            cache = torch.cat([first.unsqueeze(-1), cache[:, 1:]], -1)
+            return {"cache": cache}, step_info(hit, req)
+
+    class HostRead(Toy):
+        name = "hostread"
+
+        def step(self, state, req):
+            if int(req.key[0]) < 0:         # reads the key on the host
+                req = req._replace(key=req.key + 1)
+            return super().step(state, req)
+
+    class HostCounter(Toy):
+        name = "hostcounter"
+
+        def __init__(self):
+            self.calls = 0
+
+        def step(self, state, req):
+            self.calls += 1
+            new, info = super().step(state, req)
+            return {"cache": new["cache"] + 2 * (self.calls // 2)}, info
+
+    return Toy(), HostRead(), HostCounter()
+
+
+def phase_analysis(dev):
+    """Phase 16: the port's analysis layer (``repro_torch.analysis``) on the
+    card.  The contract pass over the 30 registry specs, the budgeted DAC
+    and ``admit(dac)``, the tier and the fleet, each step also captured
+    into a CUDA graph and its replay held equal to the eager step bit for
+    bit; the float64-default-dtype sub-pass; the retrace audit of dac (B1)
+    and lru (the graph loop) on ``Engine(device="cuda")``; the linter over
+    the checkout.  None may give a finding.  Then three toy steps: a clean
+    one gives none, a host read and a host counter baked into the graph
+    are caught.  Returns the phase's line and B1's launches in it."""
+    from repro_torch.analysis import contracts, lint, retrace
+    from repro_torch.core import RankPolicy, make_policy
+    from repro_torch.core.simulator import GRAPH_CHUNK
+    from repro_torch.kernels import policy_step
+
+    t_phase = time.perf_counter()
+    b1 = policy_step.LAUNCHES
+    captured = {"calls": 0, "equal": 0}
+    check = contracts._capture_check
+
+    def counted(*args, **kwargs):
+        ok = check(*args, **kwargs)
+        captured["calls"] += 1
+        captured["equal"] += ok
+        return ok
+
+    contracts._capture_check = counted
+    try:
+        t0 = time.perf_counter()
+        found = contracts.verify_contracts(devices=(dev,))
+        s_contracts = time.perf_counter() - t0
+    finally:
+        contracts._capture_check = check
+    specs = contracts.registry_specs()
+    n_main, n_sub = len(specs) + 4, len(specs)
+    sub = [f for f in found if "/default=float64" in f.where]
+    res = {"phase": "analysis",
+           "contracts": {"targets": n_main, "findings": len(found) - len(sub)},
+           "dtype_subpass": {"targets": n_sub, "findings": len(sub)},
+           "captured_equal_to_eager": captured["equal"],
+           "contracts_s": s_contracts}
+
+    t0 = time.perf_counter()
+    b1_audit = policy_step.LAUNCHES
+    res["retrace"] = {"T": 2 * GRAPH_CHUNK + 3}
+    for policy in ("dac", "lru"):
+        fs, report = retrace.audit_engine(policy, device=dev)
+        found += fs
+        res["retrace"][policy] = {"findings": len(fs), "counts": report}
+    b1_audit = policy_step.LAUNCHES - b1_audit
+    res["retrace"]["s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fs = lint.lint_tree(ROOT)
+    found += fs
+    files = [p for d in ("src", "benchmarks", "tools")
+             for p in (ROOT / d).rglob("*.py") if "__pycache__" not in p.parts]
+    res["lint"] = {"files": len(files), "findings": len(fs),
+                   "s": time.perf_counter() - t0}
+    if found:
+        raise AssertionError("phase 16 found:\n" + "\n".join(map(str, found)))
+    if dev == "cuda" and captured != {"calls": n_main + n_sub,
+                                      "equal": n_main + n_sub}:
+        raise AssertionError(f"phase 16 captured {captured}, expected every "
+                             f"one of {n_main + n_sub} steps equal")
+
+    # controls: the checks catch what they exist to catch
+    toy, read, counter = analysis_toys()
+    controls = {name: contracts.check_policy(pol, device=dev)
+                for name, pol in (("clean", toy), ("host_read", read),
+                                  ("host_counter", counter))}
+    on_card = dev == "cuda"
+    want = {"clean": [], "host_read": ["forbidden-primitive"] * (1 + on_card),
+            "host_counter": ["forbidden-primitive"] * on_card}
+    got = {k: [f.rule for f in v] for k, v in controls.items()}
+    if got != want:
+        raise AssertionError(f"phase 16's controls gave {controls}")
+    res["controls"] = {k: [f.message for f in v]
+                       for k, v in controls.items()}
+
+    # B1 runs in every rank target of both contract passes (the three rank
+    # specs and their admit(...) wrappers), the two budgeted DAC targets,
+    # the tier and the fleet: once eagerly, once at capture; and once a
+    # CUDA replay of dac in the audit (7 canonical calls, 6 variants each
+    # beside its canonical call)
+    rank = sum(isinstance(getattr(make_policy(s), "base", make_policy(s)),
+                          RankPolicy) for s in specs)
+    launches = policy_step.LAUNCHES - b1
+    want_b1 = 2 * (2 * rank + 4) + 7 + 2 * 6
+    if on_card and (launches != want_b1 or b1_audit != 7 + 2 * 6):
+        raise AssertionError(f"phase 16 launched B1 {launches} times "
+                             f"(the audit {b1_audit}), expected {want_b1}")
+    res["b1_launches"] = launches
+    res["s"] = time.perf_counter() - t_phase
+    return res, launches
+
+
 # -- phase 15: multi-GPU ----------------------------------------------------
 
 MG_WORLD = 4                 # gloo ranks that share the card in (b)
@@ -4662,6 +4817,8 @@ def main() -> int:
     res, arch_launches = phase_archs(dev)
     emit(res)
     emit(phase_train(dev))
+    res, analysis_launches = phase_analysis(dev)
+    emit(res)
     # the kernels are built: spawned ranks load them
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
         res, mg_launches = phase_multi_gpu(dev, tmp)
@@ -4674,9 +4831,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/policy_step.py:247",
         # the main path's replays, Table III's, the corpus sweeps', the
         # tier, fleet and admission sweeps' (counted at capture there),
-        # the inline campaigns' and phase 15's ranks' sharded replays
+        # the inline campaigns', phase 16's contract steps and audit and
+        # phase 15's ranks' sharded replays
         "launches": launches + table_launches + corpus_launches
-        + multi_launches + campaign_launches + mg_launches["b1"],
+        + multi_launches + campaign_launches + analysis_launches
+        + mg_launches["b1"],
         "max_abs_err": err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -67,7 +67,7 @@ class LIRS(Policy):
         hit = tracked & ((cur_state == LIR) | (cur_state == HIR))
 
         is_lir = st == LIR
-        n_lir = is_lir.sum(-1)
+        n_lir = is_lir.sum(-1, dtype=torch.int32)
         lir_bottom = _argmin_where(is_lir, t_last)
         min_lir_t = torch.where(n_lir > 0, _get(t_last, lir_bottom), -1)
         in_stack = tracked & (_get(t_last, idx_found) >= min_lir_t)
@@ -86,7 +86,7 @@ class LIRS(Policy):
         s2 = (keys, t_hit, _sel(promote, st2a, st))
 
         # case 3: a miss
-        n_res = (is_lir | (st == HIR)).sum(-1)
+        n_res = (is_lir | (st == HIR)).sum(-1, dtype=torch.int32)
         full = n_res >= K
         # the residency eviction: the HIR demoted to a ghost (or, with no
         # HIR, the LIR bottom dropped)
@@ -98,7 +98,7 @@ class LIRS(Policy):
         keys3 = _sel(full & ~has_hir, _set(keys, lir_bottom, EMPTY), keys)
         # bound the ghost table: drop its LRU if over capacity
         ghost_lru3 = _argmin_where(st3 == GHOST, t_last)
-        drop = (st3 == GHOST).sum(-1) > G
+        drop = (st3 == GHOST).sum(-1, dtype=torch.int32) > G
         keys3 = _sel(drop, _set(keys3, ghost_lru3, EMPTY), keys3)
         st3 = _sel(drop, _set(st3, ghost_lru3, FREE), st3)
         t3 = _sel(drop, _set(t_last, ghost_lru3, -1), t_last)
@@ -110,7 +110,8 @@ class LIRS(Policy):
         ins = torch.where(was_ghost, idx_found,
                           _first_true(st3 == FREE)[1])
         ghost_promote = was_ghost & in_stack & (n_lir >= k_lir)
-        new_state = torch.where((n_lir < k_lir) | ghost_promote, LIR, HIR)
+        new_state = torch.where((n_lir < k_lir) | ghost_promote,
+                                torch.full_like(key, LIR), HIR)
         keys3 = _set(keys3, ins, key)
         st3 = _set(st3, ins, new_state)
         st3 = _sel(ghost_promote, _set(st3, lir_bottom, HIR), st3)

@@ -214,7 +214,7 @@ def _tree_where(mask, a, b):
 
 
 def _count(mask):
-    return mask.sum(-1, keepdim=True)
+    return mask.sum(-1, keepdim=True, dtype=torch.int32)
 
 
 def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None,
@@ -254,8 +254,8 @@ def _fleet_step(tier: FleetTier, st: dict, req: Request, fresh=None,
             reserve = k_min * (_count(~alive) + _count(arrive))
             pool = torch.clamp(
                 budget - _count(k) - reserve - outstanding, min=0)
-            want = torch.where(arrive, tier.k0 - k_min, 0)
-            before = torch.cumsum(want, -1) - want
+            want = arrive.to(torch.int32) * (tier.k0 - k_min)
+            before = torch.cumsum(want, -1, dtype=torch.int32) - want
             k_admit = (k_min + torch.minimum(
                 torch.clamp(pool - before, min=0), want)).to(torch.int32)
         else:

@@ -36,7 +36,9 @@ __all__ = ["Arbiter", "StaticArbiter", "GreedyArbiter",
 
 
 def _sum(x):
-    return x.sum(-1, keepdim=True)
+    """int32 sum over the last axis, as the reference sums its int32 sizes
+    (torch would widen an integer sum to int64)."""
+    return x.sum(-1, keepdim=True, dtype=torch.int32)
 
 
 def _seq_sum(x):
@@ -135,7 +137,8 @@ class GreedyArbiter(Arbiter):
     def __call__(self, k, demanding, budget, n_tenants: int, utility=None):
         free = _free_pool(k, budget)
         demand = _demand(k, demanding, budget)
-        before = torch.cumsum(demand, -1) - demand   # pool already spoken for
+        # pool already spoken for
+        before = torch.cumsum(demand, -1, dtype=torch.int32) - demand
         grant = torch.minimum(torch.clamp(free - before, min=0), demand)
         return (k + grant).to(torch.int32)
 
@@ -158,6 +161,8 @@ class ProportionalArbiter(Arbiter):
         free = _free_pool(k, budget)
         demand = _demand(k, demanding, budget)
         total = _sum(demand)
+        # int32, as in the reference: free * demand stays below 2^31 for
+        # budgets up to 46,340 slots
         prop = torch.where(total > 0,
                            free * demand // torch.clamp(total, min=1), 0)
         grant = torch.minimum(demand, prop)

@@ -33,6 +33,11 @@ MODULES = [
     "repro_torch.campaign.executor",
     "repro_torch.campaign.report",
     "repro_torch.specs",
+    "repro_torch.analysis",
+    "repro_torch.analysis.findings",
+    "repro_torch.analysis.lint",
+    "repro_torch.analysis.contracts",
+    "repro_torch.analysis.retrace",
 ]
 
 

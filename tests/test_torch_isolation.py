@@ -56,6 +56,11 @@ def test_port_modules_import_without_jax_or_reference():
     # and the multi-GPU slice's
     assert {"repro_torch.launch.mesh",
             "repro_torch.models.sharding"} <= set(MODULES)
+    # and the analysis layer's
+    assert {"repro_torch.analysis", "repro_torch.analysis.findings",
+            "repro_torch.analysis.lint", "repro_torch.analysis.contracts",
+            "repro_torch.analysis.retrace",
+            "repro_torch.analysis.__main__"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("entry", ["repro_torch.launch.train",
@@ -188,6 +193,20 @@ def test_config_copies_equal_reference(table):
             str(cfg.dtype)
         assert port_configs.get_arch(name, smoke=table == "SMOKE_ARCHS") \
             == port[name]
+
+
+def test_finding_and_lint_rules_copy_reference():
+    """The port's ``Finding`` and the six lint rules it copies (plus the
+    waiver audit's) are the reference's."""
+    from repro.analysis import findings as rf
+    from repro.analysis import lint as rl
+    from repro_torch.analysis import findings as pf
+    from repro_torch.analysis import lint as pl
+    assert pf.Finding._fields == rf.Finding._fields
+    assert str(pf.Finding("r", "w", "m")) == str(rf.Finding("r", "w", "m"))
+    assert pl.RULES == rl.RULES and len(pl.RULES) == 7
+    assert pl._WAIVER_RE.pattern == rl._WAIVER_RE.pattern
+    assert pl._SCHEMA_HOME == rl._SCHEMA_HOME == "repro/bench/results.py"
 
 
 def test_shape_cells_equal_reference():
