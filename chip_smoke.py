@@ -182,7 +182,17 @@ Phases, one JSON line each:
    the linter over the checkout; no finding from any of them; then three
    toy steps as controls (a clean one; a host read, caught by the op
    record and by the capture; a host counter baked into the graph,
-   caught by the replay); B1's launches in the phase counted (51).
+   caught by the replay); B1's launches in the phase counted (51);
+17. the dry run (``repro_torch.launch.dryrun``; reported after 16, before
+   15; no step on the card): deepseek-7b's decode step at phase 6's shape
+   traced on one rank and its ``decode_32k`` on the (16, 16) pod mesh in a
+   fake world of 256 ranks, on fake CUDA tensors (the phase's seconds
+   include torch's first use of them); the first one's argument bytes
+   equal to what phase 6's allocator held for the parameters, a fresh
+   state and the token (within the allocator's rounding of each storage
+   to 512 bytes), its modelled
+   roofline terms beside phase 6's measured ms a step and device-busy ms;
+   the pod cell's bytes a rank and dominant term.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -206,10 +216,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_SMS = 132
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
-H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, data sheet
+# the H100's rates and the kernels' bounds (bound, flash_bound,
+# decode_bound) are repro_torch.launch.roofline's
 SEED = 20251121
 # kernel vs plain, as tests/test_kernels.py states them: in f32 the two sum
 # in different orders (online softmax against a full one); in bf16 the
@@ -239,9 +247,6 @@ B3_BF16_C = 2.0
 # attention's summation order only (~1e-6 relative); two layers and the
 # 4096-wide head keep that near 1e-5 on logits of magnitude ~1-5
 SERVE_LOGIT_TOL = 1e-4
-# int32 ALU rate: 64 INT32 lanes per SM (Hopper architecture whitepaper)
-# x 132 SMs x 1.98 GHz boost clock (H100 SXM data sheet)
-H100_INT32_OPS_PER_S = 64 * H100_SMS * 1.98e9
 BIG_K = 104857 * 4           # DAC kmax of the large-state phase
 
 
@@ -546,25 +551,6 @@ def live_ops(info, sc0, W, pid):
     return ops
 
 
-def bound(out, B, T, W, n_sc, ops):
-    """Least time (ms) on an H100 for a replay: the bytes it must move
-    (requests read once, rows and scalars read and written once, totals and
-    the per-step outputs of its mode written once) over the memory rate,
-    against ``ops`` (:func:`live_ops`) over the int32 ALU rate of the whole
-    card.  Also the operations' time on the ``min(B, 132)`` SMs that one
-    block or warp per lane can occupy."""
-    bytes_ = 12 * B * T + 8 * B * W + 8 * B * n_sc + B * (16 + 16 + 24)
-    if out.hit is not None:
-        bytes_ += 5 * B * T
-    if out.obs is not None:
-        bytes_ += 4 * B * T * n_sc
-    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S
-    sms = min(B, H100_SMS)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations",
-            {"sms": sms, "ops_on_used_sms_ms": t_ops * H100_SMS / sms * 1e3})
-
-
 def main_mode(spec):
     """The main path's replay flags: totals only, and DAC's k."""
     return {"collect_info": False, "observe": spec == "dac"}
@@ -582,6 +568,7 @@ def phase_replay(dev):
     from repro_torch.core import make_policy
     from repro_torch.data.traces import k_for
     from repro_torch.kernels import policy_step as ps
+    from repro_torch.launch import roofline as R
 
     T = 4096
     K0 = min(main_groups())
@@ -654,7 +641,7 @@ def phase_replay(dev):
         info = got if kw["collect_info"] and kw["observe"] else \
             ps.policy_replay(*args, collect_info=True, observe=True)
         ops = live_ops(info, sc, W, pol.plan().pid)
-        b_ms, b_by, b_sms = bound(got, B, T_case, W, sc.shape[1], ops)
+        b_ms, b_by, b_sms = R.bound(got, B, T_case, W, sc.shape[1], ops)
         ms = cuda_ms(lambda: ps.policy_replay(*args, **kw))
         row = {"spec": spec, "shape": [B, T_case], "K": K, "W": W,
                "path": ps.replay_path(W, pol.plan()), **kw,
@@ -708,6 +695,7 @@ def phase_main(dev, seeds=16, T=200_000):
     from repro_torch.data.traces import (family_batch, family_footprint,
                                          fetch_costs, object_sizes)
     from repro_torch.kernels import policy_step as ps
+    from repro_torch.launch import roofline as R
 
     engine = Engine(device=dev)
     reqs = {}
@@ -755,7 +743,7 @@ def phase_main(dev, seeds=16, T=200_000):
         if not torch.equal(info.work, out.work):
             raise AssertionError("main path: a rerun's work counts differ")
         ops = live_ops(info, scalars, W, args[-1].pid)
-        full.append(bound(out, cache.shape[0], T, W, scalars.shape[1],
+        full.append(R.bound(out, cache.shape[0], T, W, scalars.shape[1],
                           ops)[0])
         del info
     return launches, rank_s * 1e3 / len(full), sum(full) / len(full)
@@ -1015,45 +1003,14 @@ def decode_valid(pattern, B, S, gen, dev):
     return valid
 
 
-def flash_bound(B, S, H, Hkv, D, Dv, dtype, window=None):
-    """Least time (ms) of causal attention on an H100: 2 (D + Dv) flops per
-    (q, k) pair the masks keep, at the tensor-core bf16 rate (the f32 rate
-    for f32), against q, k, v, o read or written once."""
-    import torch
-    qpos = torch.arange(S, dtype=torch.float64)
-    keep = qpos + 1 if not window else torch.clamp(qpos + 1, max=window)
-    pairs = float(keep.sum()) * B * H
-    flops = 2 * (D + Dv) * pairs
-    size = 2 if dtype == torch.bfloat16 else 4
-    bytes_ = size * B * S * (H * D + Hkv * D + Hkv * Dv + H * Dv)
-    rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_ops, t_bytes = flops / rate, bytes_ / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
-
-
-def decode_bound(q, k, v, valid):
-    """Least time (ms) of one decode-attention call on an H100: K and V of
-    the slots this ``valid`` keeps (all of them in a row with none), q and
-    ``valid`` read once, o and mass written once, over the memory rate."""
-    B, S = valid.shape
-    live = valid.sum(1)
-    slots = int(live.where(live > 0, S).sum())
-    row = (k.shape[2] * k.shape[3] + v.shape[2] * v.shape[3]) * \
-        k.element_size()
-    bytes_ = (slots * row + q.numel() * q.element_size() + B * S
-              + q.numel() // q.shape[2] * v.shape[3] * q.element_size()
-              + 4 * B * S)
-    return bytes_ / H100_BYTES_PER_S * 1e3, "bytes"
-
-
 def b3_timing(da, q, k, v, valid, cap, flush):
     """B3 at one timed case: the kernel's ms with L2 cold, its blocks per
     call (each of its two launches), the bytes its bound counts over the
     kernel's time, its share of the bound, and the plain version's ms."""
+    from repro_torch.launch import roofline as R
     B, S = valid.shape
     H, Hkv, D, Dv = q.shape[1], k.shape[2], q.shape[2], v.shape[3]
-    b_ms, b_by = decode_bound(q, k, v, valid)
+    b_ms, b_by = R.decode_bound(q, k, v, valid)
     ms = cold_ms(lambda: da.decode_attention(q, k, v, valid, softcap=cap),
                  flush, reps=20)
     return {"shape": [B, S, H, Hkv, D, Dv], "dtype": "bfloat16",
@@ -1063,7 +1020,7 @@ def b3_timing(da, q, k, v, valid, cap, flush):
             "plain_ms": cuda_ms(lambda: da.decode_attention_plain(
                 q, k, v, valid, softcap=cap), reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-            "gb_per_s": b_ms / ms * H100_BYTES_PER_S / 1e9}
+            "gb_per_s": b_ms / ms * R.HBM_BW / 1e9}
 
 
 def b3_dropped_tile(q, k, v, valid, cap):
@@ -1124,12 +1081,13 @@ def b2_mla_timing(fa, gen, dev):
     causal, the default scale 1/sqrt(192)): ms, bound, TFLOP/s, and SDPA's
     backends on the same inputs (timed only)."""
     import torch
+    from repro_torch.launch import roofline as R
     B, S, H, Hkv, D, Dv = B2_MLA_TIMED
     dt = torch.bfloat16
     q = randn(gen, (B, S, H, D), dt, dev)
     k = randn(gen, (B, S, Hkv, D), dt, dev)
     v = randn(gen, (B, S, Hkv, Dv), dt, dev)
-    b_ms, b_by, flops = flash_bound(B, S, H, Hkv, D, Dv, dt)
+    b_ms, b_by, flops = R.flash_bound(B, S, H, Hkv, D, Dv, dt)
     row = {"shape": [B, S, H, Hkv, D, Dv], "dtype": "bfloat16",
            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v)),
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
@@ -1147,6 +1105,7 @@ def phase_attention(dev):
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import roofline as R
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, err = [], {"flash": 0.0, "decode": 0.0}
@@ -1174,7 +1133,7 @@ def phase_attention(dev):
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                b_ms, b_by, flops = flash_bound(B, S, H, Hkv, D, Dv, dtype)
+                b_ms, b_by, flops = R.flash_bound(B, S, H, Hkv, D, Dv, dtype)
                 timed["flash"] = {
                     "shape": [B, S, H, D], "dtype": "bfloat16",
                     "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
@@ -1289,6 +1248,7 @@ def phase_attention(dev):
 # ---------------------------------------------------------------------------
 
 SERVE_B, SERVE_S, SERVE_GEN, SERVE_BUDGET = 8, 2048, 64, 512
+SERVE_MAX_LEN = SERVE_S + SERVE_GEN + 2   # two traced steps at the end
 
 
 def prompt_tokens(cfg, B, S, dev, n=0):
@@ -1373,9 +1333,19 @@ def phase_serve(dev):
     cfg = ARCHS["deepseek-7b"]
     L = cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_len = SERVE_MAX_LEN
+    # what a decode step's arguments hold on the card (phase 17 holds the
+    # dry run's reckoning to it): the parameters, a fresh state (built here
+    # only to weigh it; prefill builds its own) and a token a sequence
+    mem0 = torch.cuda.memory_allocated()
     params, init_s = host_s(lambda: init_params(cfg, gen, device=dev))
+    mem_params = torch.cuda.memory_allocated() - mem0
+    state = ss.init_serve_state(cfg, SERVE_B, max_len, device=dev)
+    token = torch.zeros(SERVE_B, dtype=torch.int64, device=dev)
+    step_args = {"allocated_bytes": torch.cuda.memory_allocated() - mem0,
+                 "params_bytes": mem_params, "max_len": max_len}
+    del state, token
     tokens = prompt_tokens(cfg, SERVE_B, SERVE_S, dev)
-    max_len = SERVE_S + SERVE_GEN + 2          # two traced steps at the end
     out, seqs = {}, {}
     for regime, budget in (("unbounded", 0), ("bounded", SERVE_BUDGET)):
         fa.LAUNCHES = da.LAUNCHES = 0
@@ -1451,7 +1421,7 @@ def phase_serve(dev):
             "d_model": cfg.d_model, "params": param_count(cfg),
             "dtype": cfg.param_dtype, "batch": SERVE_B,
             "prompt": SERVE_S, "gen": SERVE_GEN, "budget": SERVE_BUDGET,
-            "init_s": init_s, **out,
+            "init_s": init_s, "step_args": step_args, **out,
             "greedy_agreement": float(same.float().mean()),
             "first_disagreement_step": first_diff}
 
@@ -3558,6 +3528,83 @@ def phase_analysis(dev):
     return res, launches
 
 
+# -- phase 17: the dry run against the card ---------------------------------
+
+# the caching allocator rounds every block up to a multiple of 512 bytes
+# (c10/cuda/CUDACachingAllocator.cpp, kMinBlockSize), so the card holds
+# each storage of the step's arguments with 0-511 bytes more than its size
+ALLOC_ROUND = 512
+DRYRUN_ARCH = "deepseek-7b"
+
+
+def phase_dryrun(dev, serve):
+    """Phase 17: the dry run (``repro_torch.launch.dryrun``) against what
+    the card holds and how long a step took, traced on fake tensors on
+    ``dev`` (nothing on the card).  The decode step at phase 6's shape
+    (B = 8, ``max_len`` slots, full width) on one rank: its argument bytes
+    (parameters, the state, the token) equal to what phase 6's allocator
+    held for them, within its rounding; its modelled roofline terms beside
+    phase 6's measured ms a step and device-busy ms.  ``decode_32k`` on the
+    (16, 16) pod mesh in a fake world of 256 ranks: bytes a rank and the
+    dominant term.  The phase's seconds include torch's first use of
+    ``FakeTensorMode`` (it imports ``torch._dynamo``), timed apart as
+    ``first_use_s``.  No step runs on the card."""
+    t_phase = time.perf_counter()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ARCHS, SHAPES, ShapeCell
+    from repro_torch.launch import dryrun
+
+    FakeTensorMode()                 # torch's first use, timed on its own
+    first_use_s = time.perf_counter() - t_phase
+    cfg = ARCHS[DRYRUN_ARCH]
+    held = serve["step_args"]
+    cell = ShapeCell("phase6_decode", held["max_len"], SERVE_B, "decode")
+    t1 = time.perf_counter()
+    ana, n, meta, mem = dryrun.trace_cell(DRYRUN_ARCH, cell, "single",
+                                          device=dev)
+    single_s = time.perf_counter() - t1
+    got, want = mem["argument_bytes"], held["allocated_bytes"]
+    storages = mem["argument_storages"]
+    slack = (ALLOC_ROUND - 1) * storages
+    if not 0 <= want - got <= slack:
+        raise AssertionError(
+            f"phase 17: the dry run reckons {got} argument bytes, the card "
+            f"held {want} (allowed: 0 to {slack} more)")
+    rf = dryrun.summarize(ana, n, meta, mem, cell, cfg)["roofline"]
+    unb = serve["unbounded"]
+    t1 = time.perf_counter()
+    shape = SHAPES["decode_32k"]
+    ana, n, meta, mem = dryrun.trace_cell(DRYRUN_ARCH, shape, "pod",
+                                          device=dev)
+    pod_s = time.perf_counter() - t1
+    pod = dryrun.summarize(ana, n, meta, mem, shape, cfg)
+    credited = pod["roofline"]["kernel_credited"]
+    return {"phase": "dryrun",
+            "step_args": {"dryrun_bytes": got, "allocated_bytes": want,
+                          "difference": want - got, "allowed": slack,
+                          "storages": storages},
+            "phase6_decode": {
+                "modelled_ms": {k[:-2]: rf[k] * 1e3 for k in
+                                ("compute_s", "memory_s", "collective_s")},
+                "modelled_memory_ms_kernel_credited":
+                    rf["kernel_credited"]["memory_s"] * 1e3,
+                "dominant": rf["dominant"],
+                "measured_ms_per_step": unb["ms_per_step"],
+                "measured_device_busy_ms":
+                    unb["decode_step_profile"]["device_busy_ms"]},
+            "pod_decode_32k": {
+                "ranks": n, "argument_bytes_per_rank": mem["argument_bytes"],
+                "total_nonaliased_gb": pod["memory"]["total_nonaliased_gb"],
+                "dominant": pod["roofline"]["dominant"],
+                "kernel_credited_dominant": credited["dominant"],
+                "terms_ms": {k[:-2]: pod["roofline"][k] * 1e3 for k in
+                             ("compute_s", "memory_s", "collective_s")},
+                "kernel_credited_memory_ms": credited["memory_s"] * 1e3},
+            "first_use_s": first_use_s, "single_s": single_s,
+            "pod_s": pod_s, "s": time.perf_counter() - t_phase}
+
+
 # -- phase 15: multi-GPU ----------------------------------------------------
 
 MG_WORLD = 4                 # gloo ranks that share the card in (b)
@@ -4819,6 +4866,7 @@ def main() -> int:
     emit(phase_train(dev))
     res, analysis_launches = phase_analysis(dev)
     emit(res)
+    emit(phase_dryrun(dev, serve))
     # the kernels are built: spawned ranks load them
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
         res, mg_launches = phase_multi_gpu(dev, tmp)

@@ -60,6 +60,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(cs.ROOT / "src"))
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import roofline as R
 
     dev = "cuda"
     print(cs.nvidia_smi_line(), flush=True)
@@ -91,7 +92,7 @@ def main() -> int:
         print(json.dumps({
             "case": name, "shape": [B, S, H, Hkv, D, Dv], "dtype": "bfloat16",
             "valid_slots": int(valid.sum()), "chunk_len": rule,
-            "bound_ms": cs.decode_bound(q, k, v, valid)[0],
+            "bound_ms": R.decode_bound(q, k, v, valid)[0],
             "ms_by_chunk": {c: cs.cold_ms(call(c), flush, reps=20)
                             for c in sorted({*CHUNKS, rule})},
             "blocks_by_chunk": {c: da.blocks_per_call(B, S, H, Hkv, D, Dv, c)

@@ -5,7 +5,7 @@ equal field for field."""
 from . import (codeqwen15_7b, deepseek_7b, deepseek_v2_236b, gemma2_27b,
                jamba_15_large_398b, llava_next_mistral_7b, mixtral_8x22b,
                musicgen_medium, qwen15_110b, xlstm_125m)
-from .shapes import SHAPES, ShapeCell
+from .shapes import SHAPES, ShapeCell, TensorSpec, input_specs
 
 _MODULES = {
     "xlstm-125m": xlstm_125m,
@@ -31,4 +31,5 @@ def get_arch(name: str, smoke: bool = False):
     return table[name]
 
 
-__all__ = ["ARCHS", "SMOKE_ARCHS", "SHAPES", "ShapeCell", "get_arch"]
+__all__ = ["ARCHS", "SMOKE_ARCHS", "SHAPES", "ShapeCell", "TensorSpec",
+           "get_arch", "input_specs"]

@@ -10,12 +10,16 @@ Every LM arch is paired with the same four cells:
                                                  bounded-KV DAC manager
                                                  (budget slots << seq).
 
-The reference's ``input_specs`` (built on ``jax.ShapeDtypeStruct``) has no
-counterpart here.
+``input_specs`` gives each cell's model inputs as :class:`TensorSpec`
+records (shape and dtype, nothing allocated); ``launch.dryrun`` makes
+them fake tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,3 +38,54 @@ SHAPES = {
     "long_500k": ShapeCell("long_500k", 524288, 1, "decode",
                            bounded_budget=65536),
 }
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, nothing allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+    def make(self, device="cpu") -> torch.Tensor:
+        """An uninitialised tensor of this spec (a fake one under a
+        ``FakeTensorMode``)."""
+        return torch.empty(self.shape, dtype=self.dtype, device=device)
+
+
+def input_specs(cfg, shape: "ShapeCell | str") -> dict:
+    """Model-input specs for one (arch x shape) cell, the reference's
+    shapes and dtypes:
+
+    train:   {tokens | embeds, labels}
+    prefill: {tokens | embeds}
+    decode:  {token [B] | embed [B, d]}  (the serve state's specs are
+             ``serving.serve_state_specs``: step state, not model input)
+
+    Token ids take the dtype the port's steps are given: int32 in
+    training (``data.tokens``, as the reference), int64 in serving
+    (``launch.serve``; the reference's are int32).  Embeddings are bf16.
+
+    >>> from repro_torch.configs import ARCHS
+    >>> input_specs(ARCHS["deepseek-7b"], "decode_32k")["token"]
+    TensorSpec(shape=(128,), dtype=torch.int64)
+    """
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = cell.global_batch, cell.seq_len
+    d = cfg.d_model
+    bf16 = torch.bfloat16
+    if cell.kind == "train":
+        spec = {"labels": TensorSpec((B, S), torch.int32)}
+        if cfg.embeds_input:
+            spec["embeds"] = TensorSpec((B, S, d), bf16)
+        else:
+            spec["tokens"] = TensorSpec((B, S), torch.int32)
+        return spec
+    if cell.kind == "prefill":
+        if cfg.embeds_input:
+            return {"embeds": TensorSpec((B, S, d), bf16)}
+        return {"tokens": TensorSpec((B, S), torch.int64)}
+    if cell.kind == "decode":
+        if cfg.embeds_input:
+            return {"embed": TensorSpec((B, d), bf16)}
+        return {"token": TensorSpec((B,), torch.int64)}
+    raise ValueError(cell.kind)

@@ -210,13 +210,27 @@ def axis_index(mesh, axis: str) -> int:
 _CARRY = (torch.bool, torch.bfloat16)
 
 
+# Set by a counter (``launch.roofline``) to see every collective: called as
+# ``COLLECTIVE_HOOK(kind, x, ranks)`` with ``kind`` "all-gather", "sum" (a
+# :func:`seq_sum`'s all-gather) or "reduce-scatter", ``x`` the rank's
+# operand and ``ranks`` the group's global ranks.  ``None`` otherwise.
+COLLECTIVE_HOOK = None
+
+
 def gather(x: torch.Tensor, mesh, axis: str) -> list:
     """``x`` of every rank along ``axis`` (same shape and dtype on each),
     in coordinate order."""
+    return _gather(x, mesh, axis, "all-gather")
+
+
+def _gather(x, mesh, axis, kind):
     group = mesh.get_group(axis)
     n = axis_size(mesh, axis)
     if n == 1:
         return [x]
+    ranks, coords = _members(mesh, axis, group)
+    if COLLECTIVE_HOOK is not None:
+        COLLECTIVE_HOOK(kind, x, ranks)
     dt = x.dtype
     send = x.contiguous()
     if dt in _CARRY:
@@ -225,19 +239,36 @@ def gather(x: torch.Tensor, mesh, axis: str) -> list:
     dist.all_gather(out, send, group=group)
     # the group's ranks come in global-rank order; put them in coordinate
     # order along the axis
-    dim = mesh.mesh_dim_names.index(axis)
     ordered = [None] * n
-    for g, r in enumerate(dist.get_process_group_ranks(group)):
-        ordered[int((mesh.mesh == r).nonzero()[0, dim])] = out[g]
+    for g, c in enumerate(coords):
+        ordered[c] = out[g]
     return [t.view(dt) if dt in _CARRY else t for t in ordered]
 
 
-def _coords(mesh, axis, group):
-    """Each member of ``axis``'s group (in the group's rank order): its
-    coordinate along ``axis``."""
-    dim = mesh.mesh_dim_names.index(axis)
-    return [int((mesh.mesh == r).nonzero()[0, dim])
-            for r in dist.get_process_group_ranks(group)]
+def _members(mesh, axis, group):
+    """The global ranks of ``axis``'s group (in the group's rank order) and
+    each one's coordinate along ``axis``, as Python ints; reckoned once a
+    mesh and axis from the mesh's rank layout (no tensor op, so that a
+    collective on fake tensors traces)."""
+    cache = mesh.__dict__.setdefault("_repro_members", {})
+    if axis not in cache:
+        # the layout is a real tensor, read outside any fake or counting
+        # mode the caller runs under
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            dims = tuple(int(n) for n in mesh.mesh.shape)
+            flat_ranks = mesh.mesh.reshape(-1).tolist()
+        where = {}
+        for flat, r in enumerate(flat_ranks):
+            coord = []
+            for n in reversed(dims):
+                flat, c = divmod(flat, n)
+                coord.append(c)
+            where[int(r)] = coord[::-1]
+        dim = mesh.mesh_dim_names.index(axis)
+        ranks = [int(r) for r in dist.get_process_group_ranks(group)]
+        cache[axis] = (ranks, [where[r][dim] for r in ranks])
+    return cache[axis]
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0):
@@ -250,7 +281,9 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0):
     n = axis_size(mesh, axis)
     if n == 1:
         return x
-    coords = _coords(mesh, axis, group)
+    ranks, coords = _members(mesh, axis, group)
+    if COLLECTIVE_HOOK is not None:
+        COLLECTIVE_HOOK("reduce-scatter", x, ranks)
     dt = x.dtype
     pieces = x.chunk(n, dim)
     # the group's j-th member gets the piece at its coordinate
@@ -302,11 +335,12 @@ class _SeqSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
-        return _ordered_sum(gather(x, mesh, axis))
+        return _ordered_sum(_gather(x, mesh, axis, "sum"))
 
     @staticmethod
     def backward(ctx, g):
-        return _ordered_sum(gather(g, ctx.mesh, ctx.axis)), None, None
+        return _ordered_sum(_gather(g, ctx.mesh, ctx.axis, "sum")), None, \
+            None
 
 
 def _ordered_sum(parts):

@@ -7,11 +7,12 @@ from .config import ArchConfig, LayerSpec, MambaSpec, MoESpec, XLSTMSpec
 from .convert import (params_from_reference, params_to_reference,
                       serve_state_from_reference, serve_state_to_numpy,
                       stacked_view)
-from .model import forward, init_params, lm_loss, param_count
+from .model import (forward, init_params, init_params_shape, lm_loss,
+                    param_count)
 
 __all__ = [
     "ArchConfig", "LayerSpec", "MambaSpec", "MoESpec", "XLSTMSpec",
-    "forward", "init_params", "lm_loss", "param_count",
+    "forward", "init_params", "init_params_shape", "lm_loss", "param_count",
     "params_from_reference", "params_to_reference", "stacked_view",
     "serve_state_from_reference", "serve_state_to_numpy",
 ]

@@ -30,7 +30,7 @@ import torch
 from ..kernels.flash_attention import NEG_INF
 from .layers import apply_rope, attend_prefill, rmsnorm
 
-__all__ = ["mla_latent", "mla_apply", "mla_attend"]
+__all__ = ["mla_latent", "mla_apply", "mla_attend", "absorbed_attention"]
 
 
 def _queries(x, p, cfg, positions):
@@ -96,14 +96,24 @@ def mla_attend(x, p, cfg, latent_cache, krope_cache, valid, position):
     w_kb = p["w_kvb"][..., :dn]                             # [r, H, dn]
     w_vb = p["w_kvb"][..., dn:]                             # [r, H, dv]
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_kb)    # [B, 1, H, r]
-    scale = 1.0 / math.sqrt(dn + dr)
+    pr, o_lat = absorbed_attention(q_lat, q_rope, latent_cache, krope_cache,
+                                   valid, 1.0 / math.sqrt(dn + dr))
+    o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_vb)
+    out = torch.einsum("bhv,hvd->bd", o, p["wo"])
+    return out, pr.mean(dim=1)
+
+
+def absorbed_attention(q_lat, q_rope, latent_cache, krope_cache, valid,
+                       scale):
+    """The attention inside :func:`mla_attend` (the reference's
+    ``decode_attention_jnp`` scope): the scores over the latent and rotary
+    caches, the softmax over the ``valid`` slots and the latent output.
+    Returns (probabilities ``[B, H, L]`` f32, ``o_lat`` ``[B, H, r]``
+    f32)."""
     s = torch.einsum("bshr,btr->bhst", q_lat, latent_cache.to(q_lat.dtype))
     s = s + torch.einsum("bshk,btk->bhst", q_rope,
                          krope_cache.to(q_rope.dtype))
     s = (s.float() * scale)[:, :, 0]                        # [B, H, L]
     s = torch.where(valid[:, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", pr, latent_cache.float())
-    o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_vb)
-    out = torch.einsum("bhv,hvd->bd", o, p["wo"])
-    return out, pr.mean(dim=1)
+    return pr, torch.einsum("bhs,bsr->bhr", pr, latent_cache.float())

@@ -24,8 +24,9 @@ from . import mla, moe, sharding, ssm
 from .config import ArchConfig, LayerSpec
 from .layers import attn_apply, mlp_apply, rmsnorm
 
-__all__ = ["init_params", "forward", "lm_loss", "param_count", "layer_spec",
-           "ffn", "param_shapes", "REMAT_POLICIES"]
+__all__ = ["init_params", "init_params_shape", "forward", "lm_loss",
+           "param_count", "layer_spec", "ffn", "param_shapes",
+           "REMAT_POLICIES"]
 
 
 class _Leaf(NamedTuple):
@@ -199,7 +200,7 @@ def _normal(shape, std, dtype, generator, device, cut=None):
     n = math.prod(shape)
     if n <= _DRAW_SLICE:
         x = draw(shape)
-        return (x if cut is None else cut(x)).to(dtype).contiguous()
+        return _own((x if cut is None else cut(x)).to(dtype))
     out = torch.empty(shape if cut is None else cut.shape, dtype=dtype,
                       device=device)
     first, count = (0, shape[0]) if cut is None else cut.rows
@@ -215,12 +216,21 @@ def _normal(shape, std, dtype, generator, device, cut=None):
     return out
 
 
+def _own(x):
+    """``x`` contiguous in a storage of its own size: a rank's cut of a
+    larger draw would otherwise keep the whole draw alive."""
+    x = x.contiguous()
+    if x.untyped_storage().nbytes() != x.numel() * x.element_size():
+        x = x.clone()
+    return x
+
+
 def _make(leaf: _Leaf, dt, generator, device, cut=None):
     dt = leaf.dtype or dt
     if leaf.std is not None:
         return _normal(leaf.shape, leaf.std, dt, generator, device, cut)
     x = leaf.init(leaf.shape, dt, generator, device)
-    return x if cut is None else cut(x).contiguous()
+    return x if cut is None else _own(cut(x))
 
 
 def _build(tree, fn, keys=()):
@@ -279,14 +289,45 @@ def _leaves(tree):
         yield tree
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Exact parameter count of :func:`init_params`."""
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count of :func:`init_params`.
+
+    ``active_only``: less the routed-expert parameters a token does not
+    touch (MoE), the N_active of the 6 N_active D roofline bookkeeping
+    (the reference's law).
+
+    >>> from repro_torch.configs import ARCHS
+    >>> cfg = ARCHS["mixtral-8x22b"]
+    >>> param_count(cfg) > param_count(cfg, active_only=True)
+    True
+    """
     layers = sum(math.prod(leaf.shape)
                  for layer in range(cfg.n_layers)
                  for leaf in _leaves(_layer_shapes(cfg, layer_spec(cfg,
                                                                    layer))))
     head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab
-    return cfg.vocab * cfg.d_model + layers + cfg.d_model + head
+    n = cfg.vocab * cfg.d_model + layers + cfg.d_model + head
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        per_layer = 3 * cfg.d_model * m.d_ff_expert * (m.n_experts - m.top_k)
+        n -= per_layer * sum(1 for s in cfg.layer_specs() if s.moe)
+    return n
+
+
+def init_params_shape(cfg: ArchConfig, sctx=None, device="cuda",
+                      mode=None) -> dict:
+    """:func:`init_params` under a ``FakeTensorMode`` (``mode``, else a new
+    one): the parameter tree (with ``sctx``, this rank's blocks of it) as
+    fake tensors on ``device``, nothing allocated or drawn.  The generator
+    is a CPU one: a fake draw reads none.
+
+    >>> from repro_torch.configs import ARCHS
+    >>> init_params_shape(ARCHS["deepseek-7b"], device="cpu")["embed"].shape
+    torch.Size([102400, 4096])
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with mode or FakeTensorMode():
+        return init_params(cfg, torch.Generator(), device=device, sctx=sctx)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:

@@ -53,8 +53,8 @@ from ..models.model import (embed_inputs, ffn, forward, layer_spec,
 from ..models.sharding import serve_state_shardings
 from . import kv_cache as kvc
 
-__all__ = ["init_serve_state", "decode_step", "prefill", "bounded_fill",
-           "kv_bytes", "serve_state_shardings"]
+__all__ = ["init_serve_state", "serve_state_specs", "decode_step", "prefill",
+           "bounded_fill", "kv_bytes", "serve_state_shardings"]
 
 # the recurrent layers' state and one-token step, by kind
 RECURRENT = {"mamba": (ssm.mamba_state_init, ssm.mamba_decode_step),
@@ -109,6 +109,24 @@ def init_serve_state(cfg: ArchConfig, B: int, max_len: int, budget: int = 0,
                                    ways))
     return {"pos": torch.zeros(loc.batch, dtype=torch.int32, device=device),
             "layers": layers}
+
+
+def serve_state_specs(cfg: ArchConfig, B: int, max_len: int,
+                      budget: int = 0, sctx=None, device="cuda",
+                      mode=None) -> dict:
+    """:func:`init_serve_state` under a ``FakeTensorMode`` (``mode``, else a
+    new one): the state (with ``sctx``, this rank's block of it) as fake
+    tensors on ``device``, nothing allocated.
+
+    >>> from repro_torch.configs import ARCHS
+    >>> st = serve_state_specs(ARCHS["deepseek-7b"], 8, 2048, device="cpu")
+    >>> kv_bytes(st) == 30 * 2 * 8 * 2048 * 32 * 128 * 2   # K, V in bf16
+    True
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with mode or FakeTensorMode():
+        return init_serve_state(cfg, B, max_len, budget, device=device,
+                                sctx=sctx)
 
 
 def kv_bytes(state) -> int:

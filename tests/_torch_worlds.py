@@ -403,3 +403,44 @@ def _leaves(tree):
             yield from _leaves(x)
     else:
         yield tree
+
+
+# -- the dry run's collectives against a real world -------------------------
+
+DRYRUN_CASES = (("deepseek-7b", 0), ("deepseek-7b", 16),
+                ("mixtral-8x22b", 0))
+DRYRUN_B, DRYRUN_LEN = 8, 32
+
+
+def decode_collectives(cfg, sctx, params, state, token):
+    """One decode step under ``launch.roofline.StepCounter``: its
+    collectives as the mesh's hook saw them (counts, wire bytes by kind
+    and link, ``seq_sum``'s wire bytes)."""
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.serving import decode_step
+    with torch.no_grad(), StepCounter() as c:
+        decode_step(params, cfg, state, token=token, impl="plain", sctx=sctx)
+    res = c.result()
+    return {k: res[k] for k in ("collective_counts", "collective_bytes",
+                                "wire_by_link", "sum_wire_bytes")}
+
+
+def collectives_world():
+    """Each ``DRYRUN_CASES`` smoke decode on a (data 2, model 2) mesh of
+    real tensors, serve mode: rank 0's collectives (every rank runs the
+    step)."""
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.serving import init_serve_state
+    mesh = M.make_test_mesh(2, 2)
+    sctx = dataclasses.replace(M.shard_ctx(mesh), mode="serve")
+    out = []
+    for name, budget in DRYRUN_CASES:
+        cfg = SMOKE_ARCHS[name]
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", sctx=sctx)
+        state = init_serve_state(cfg, DRYRUN_B, DRYRUN_LEN, budget,
+                                 device="cpu", sctx=sctx)
+        token = torch.zeros(DRYRUN_B, dtype=torch.int64)
+        out.append(decode_collectives(cfg, sctx, params, state, token))
+    return out

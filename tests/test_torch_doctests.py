@@ -38,6 +38,12 @@ MODULES = [
     "repro_torch.analysis.lint",
     "repro_torch.analysis.contracts",
     "repro_torch.analysis.retrace",
+    "repro_torch.configs.shapes",
+    "repro_torch.models.model",
+    "repro_torch.serving.serve_step",
+    "repro_torch.launch.roofline",
+    "repro_torch.launch.profile",
+    "repro_torch.launch.report",
 ]
 
 

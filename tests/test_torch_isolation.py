@@ -61,10 +61,17 @@ def test_port_modules_import_without_jax_or_reference():
             "repro_torch.analysis.lint", "repro_torch.analysis.contracts",
             "repro_torch.analysis.retrace",
             "repro_torch.analysis.__main__"} <= set(MODULES)
+    # and the launch layer's dry run
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.profile",
+            "repro_torch.launch.report"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("entry", ["repro_torch.launch.train",
-                                   "repro_torch.launch.serve"])
+                                   "repro_torch.launch.serve",
+                                   "repro_torch.launch.dryrun",
+                                   "repro_torch.launch.profile",
+                                   "repro_torch.launch.report"])
 def test_launch_entry_points_import_without_jax_or_reference(entry):
     """``python -m`` of each launch entry point (its ``--help``) loads
     neither jax nor the reference package."""
