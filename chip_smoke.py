@@ -15,7 +15,8 @@ Phases, one JSON line each:
    row in shared memory, in device memory), which ``b1_edges`` reads from
    the kernel's own dispatch;
    ``policy_replay`` against the plain step loop for climb, ac and dac
-   with ``collect_info`` on and off and ``observe`` on at B=8, T=4096; for
+   with ``collect_info`` on and off and ``observe`` on at B=8 (T=2048,
+   ``REPLAY_CHECK_T``, as every untimed case; the timed T=4096); for
    each capacity group of the main path at its lane count and in its mode
    (dac at K=819 is the timed case); for ``dac(growth=4)`` at the large
    state's width (row in device memory) with lanes that grow and shrink;
@@ -57,7 +58,18 @@ Phases, one JSON line each:
    B3 also at gemma2-27b's window, with the L2 cache cold, with its
    blocks per call, GB/s and share of its bound, beside what the cold
    timing reads for no work (``decode_sweep.py`` times B3's chunk
-   lengths);
+   lengths); B3's sharded law for a slot-split KV cache
+   (``decode_attention_partial`` on each rank's block, ``_merge`` of the
+   blocks' partials in rank order; ``SLOT_SHAPES``: qwen1.5-110b's
+   ``decode_32k`` rank, 16 blocks of 2,048 slots, H 64 / Hkv 8, D 128;
+   mixtral-8x22b's window over 16 blocks with an empty row; musicgen's 24
+   heads padded to 32) with all blocks on this card, in f32 and bf16:
+   each kernel against its plain version, the law against the unsharded
+   B3 and the plain law (``ATTN_TOL``, the mass within ``MASS_REL`` of
+   its row's scale, bf16 units), the same bits twice, and two planted
+   masses that must fail that check (each head's mass normalised by the
+   next head's ``(m, l)``; a uniform one); a block's partial and a rank's merge timed at
+   qwen's shape with L2 cold beside their byte bounds;
 6. serve: deepseek-7b at full width and depth (30 layers, bf16, seeded
    random weights) through ``prefill`` + 64 greedy ``decode_step`` s on
    B = 8 prompts of 2048 tokens, unbounded and with the DAC-bounded pool
@@ -107,7 +119,7 @@ Phases, one JSON line each:
    step (the gate's revert); DAC's resize laws on ``observe=True``
    replays through B1; us a step and device operations a step;
 12. campaign: a six-dataset corpus written at run time (one dataset per
-   dataset family, two traces of 500,000 requests each, sizes under
+   dataset family, two traces of 300,000 requests each, sizes under
    256 B; uncompressed oracleGeneral files and one gzipped CSV with
    costs) and one planted bad file, through ``repro_torch.campaign``:
    campaign A (fifo, lru, ac, dac x {S, L}, T cut to 5,000) inline on
@@ -170,7 +182,15 @@ Phases, one JSON line each:
    with the kernels against the unsharded path and against the sharded
    plain versions (logits within 1e-4, DAC's control equal unless a
    near-tie is reported); µs a fleet step sharded and unsharded, ms a
-   re-deal, prefill s and decode ms a step;
+   re-deal, prefill s and decode ms a step; (c) after (b), ``MG_SLOT_WORLD``
+   = 16 gloo ranks sharing the card on a (data 1, model 16) mesh:
+   qwen1.5-110b at full width, 1 of 80 layers, whose 8 KV heads do not
+   split 16 ways, so that each rank holds a 16th of the cache's slots
+   (checked: its KV bytes against the unsharded cache's) and B3 runs as a
+   partial a rank and a merge (counted), bf16, B = 8 x 128, 2 steps,
+   both regimes (prefill s, decode ms a step); then f32, 2 steps, logits
+   within 1e-4 of the unsharded port on rank 0 and DAC's control equal
+   unless a near-tie is reported;
 16. analysis (``repro_torch.analysis``; it runs after phase 14, before 15):
    the contract pass over the 30 registry specs, the budgeted DAC and
    ``admit(dac)``, the tier and the fleet on the card, each step captured
@@ -183,8 +203,8 @@ Phases, one JSON line each:
    toy steps as controls (a clean one; a host read, caught by the op
    record and by the capture; a host counter baked into the graph,
    caught by the replay); B1's launches in the phase counted (51);
-17. the dry run (``repro_torch.launch.dryrun``; reported after 16, before
-   15; no step on the card): deepseek-7b's decode step at phase 6's shape
+17. the dry run (``repro_torch.launch.dryrun``; reported after 15; no
+   step on the card): deepseek-7b's decode step at phase 6's shape
    traced on one rank and its ``decode_32k`` on the (16, 16) pod mesh in a
    fake world of 256 ranks, on fake CUDA tensors (the phase's seconds
    include torch's first use of them); the first one's argument bytes
@@ -192,7 +212,10 @@ Phases, one JSON line each:
    state and the token (within the allocator's rounding of each storage
    to 512 bytes), its modelled
    roofline terms beside phase 6's measured ms a step and device-busy ms;
-   the pod cell's bytes a rank and dominant term.
+   the pod cell's bytes a rank and dominant term; phase 15's world (c):
+   qwen1.5-110b's 1-layer rank on the (data 1, model 16) mesh in a fake
+   world of 16, its argument bytes against what the rank's allocator
+   held and its KV bytes equal.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -225,6 +248,12 @@ SEED = 20251121
 # sides from the same inputs, so it is held at the f32 tolerance in both.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 MASS_TOL = 2e-5
+# B3's sharded law holds the mass relative to its scale: each element within
+# MASS_REL of its row's largest wanted mass.  The mass is a mean over the
+# heads of softmax weights, ~1 / the row's valid slots: ~3e-5 at qwen's
+# decode_32k rank, where MASS_TOL would pass a merge that normalises a head
+# by its neighbour's (m, l) (planted in ``b3_slot_cases``, which must fail)
+MASS_REL = 1e-4
 # B2 in bf16, element by element against the plain version in f32 from the
 # same bf16 inputs, on the scale of bf16's rounding (2^-8 relative):
 #   |got - want| <= BF16_C * (2^-8 * max(|want|, RMS of want's row) + BF16_FLOOR)
@@ -551,6 +580,9 @@ def live_ops(info, sc0, W, pid):
     return ops
 
 
+REPLAY_CHECK_T = 2048
+
+
 def main_mode(spec):
     """The main path's replay flags: totals only, and DAC's k."""
     return {"collect_info": False, "observe": spec == "dac"}
@@ -573,6 +605,9 @@ def phase_replay(dev):
     T = 4096
     K0 = min(main_groups())
     modes = ((True, True), (False, True), (False, False))
+    # the cases that are not timed replay the first REPLAY_CHECK_T requests
+    # (4,096 until phase 15 served on 16 ranks, PERF.md §4)
+    T_check = REPLAY_CHECK_T
     cases = [(8, K0, "alibaba", spec, {"collect_info": ci, "observe": ob})
              for spec in ("climb", "ac", "dac") for ci, ob in modes]
     for K, fams in main_groups().items():
@@ -616,12 +651,13 @@ def phase_replay(dev):
             cache, sc, reqs = wide[K if fam is None else fam]
             T_case = T_big
         else:
-            if (B, fam) not in inputs:
-                inputs[B, fam] = replay_inputs(B, T, dev, fam)
+            T_case = T_check if B == 8 or i >= untimed else T
+            if (B, fam, T_case) not in inputs:
+                inputs[B, fam, T_case] = replay_inputs(B, T_case, dev, fam)
             st = pol.init(K, lanes=B, device=dev)
             cache = st["cache"]
             sc = torch.stack([st[n] for n in pol.SCALARS], -1)
-            reqs, T_case = inputs[B, fam], T
+            reqs = inputs[B, fam, T_case]
         args = (cache, sc, *reqs, pol.plan())
         got = ps.policy_replay(*args, **kw)
         want, plain_s = host_s(lambda: ps.replay_plain(*args, **kw))
@@ -981,6 +1017,24 @@ DECODE_SHAPES = [
 DECODE_TIMED = ("deepseek-7b unbounded", "deepseek-7b bounded",
                 "gemma2-27b window")
 FLUSH_BYTES = 1 << 29        # 512 MB read between timed launches (L2: 50 MB)
+# B3's sharded law on a slot-split cache (``decode_attention_partial`` over
+# each of n ranks' blocks of the slots for every head, the partials dealt
+# by heads and merged in rank order by ``decode_attention_merge``), all n
+# blocks on this card, held against the unsharded B3 over the whole table:
+# name, B, S, H, Hkv, D, Dv, softcap, valid pattern, n.  qwen1.5-110b's
+# ``decode_32k`` rank (16 blocks of 2,048, the timed case);
+# mixtral-8x22b's window over 16 blocks (most blocks without a valid slot
+# in rows that have some) with an empty row; musicgen-medium's 24 heads
+# (padded to 32 for the exchange by heads)
+SLOT_SHAPES = [
+    ("qwen1.5-110b decode_32k rank", 8, 32768, 64, 8, 128, 128, 0.0,
+     "prefix", 16),
+    ("mixtral-8x22b window", 4, 16384, 48, 8, 128, 128, 0.0, "window+empty",
+     16),
+    ("musicgen-medium heads", 8, 4096, 24, 24, 64, 64, 0.0, "sparse+empty",
+     16),
+]
+SLOT_TIMED = "qwen1.5-110b decode_32k rank"
 
 
 def decode_valid(pattern, B, S, gen, dev):
@@ -995,9 +1049,10 @@ def decode_valid(pattern, B, S, gen, dev):
         step = 8 if pattern == "prefix" else 9
         pos = first + step * torch.arange(B, device=dev)[:, None]
         return ar <= pos
-    if pattern == "window":
-        return (ar > S - 1 - 4096).expand(B, S).contiguous()
-    valid = torch.rand((B, S), generator=gen, device=dev) < 0.7
+    if pattern.startswith("window"):
+        valid = (ar > S - 1 - 4096).expand(B, S).contiguous()
+    else:
+        valid = torch.rand((B, S), generator=gen, device=dev) < 0.7
     if pattern.endswith("+empty"):
         valid[-1] = False
     return valid
@@ -1044,6 +1099,229 @@ def b3_dropped_tile(q, k, v, valid, cap):
         p[b, ..., t0:t0 + 8] = 0.0
     o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return o.reshape(B, H, v.shape[3])
+
+
+def b3_sharded(da, q, k, v, valid, cap, n, plain=False):
+    """B3's sharded law on this card: the partial over each of ``n`` equal
+    blocks of the slots (every head, the whole rows' ``valid``), the heads
+    padded to a multiple of ``n`` and dealt ``Hp / n`` to a rank as the
+    exchange deals them, each rank's merge of its heads in block order with
+    its block's mass; the kernels, or with ``plain`` their plain versions.
+    Returns ``(o [B, H, Dv], mass [B, S], parts, scores, padded, ml)``."""
+    import torch
+    H, S = q.shape[1], k.shape[1]
+    Sb = S // n
+    partial = (da.decode_attention_partial_plain if plain
+               else da.decode_attention_partial)
+    merge = da.decode_attention_merge_plain if plain \
+        else da.decode_attention_merge
+    parts, scores = [], []
+    for r in range(n):
+        blk = slice(r * Sb, (r + 1) * Sb)
+        p, sc = partial(q, k[:, blk], v[:, blk], valid, r * Sb, softcap=cap)
+        parts.append(p)
+        scores.append(sc)
+    padded = torch.stack([da.pad_heads(p, n) for p in parts])
+    ml = torch.stack(parts)[..., -2:].contiguous()
+    hn = padded.shape[2] // n
+    outs, mass = [], []
+    for r in range(n):
+        o, m = merge(padded[:, :, r * hn:(r + 1) * hn], ml, scores[r],
+                     dtype=q.dtype)
+        outs.append(o)
+        mass.append(m)
+    return (torch.cat(outs, dim=1)[:, :H], torch.cat(mass, dim=-1), parts,
+            scores, padded, ml)
+
+
+def part_err(got, want, what):
+    """Largest difference of two partials ``[B, H, Dv + 2]`` (acc, m, l),
+    in terms that do not grow with a block's slots: the block's output
+    ``acc / l``, ``m``, and ``l`` relative to max(l, 1); raises above
+    ``ATTN_TOL["float32"]`` (both are f32 sums of the same f32 products in
+    other orders)."""
+    import torch
+    Dv = got.shape[-1] - 2
+    l_g, l_w = got[..., Dv + 1], want[..., Dv + 1]
+    errs = [
+        close_err(got[..., :Dv] / l_g.clamp(min=1e-30)[..., None],
+                  want[..., :Dv] / l_w.clamp(min=1e-30)[..., None],
+                  ATTN_TOL["float32"], what + " acc / l"),
+        close_err(got[..., Dv], want[..., Dv], ATTN_TOL["float32"],
+                  what + " m"),
+        close_err((l_g - l_w) / torch.clamp(l_w, min=1.0),
+                  torch.zeros_like(l_w), ATTN_TOL["float32"], what + " l")]
+    return max(errs)
+
+
+def mass_err(got, want, scale, what):
+    """Largest difference of two masses ``[B, S]`` over ``scale`` (``[B,
+    1]``, the row's largest wanted mass); raises above ``MASS_REL``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise Mismatch(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                       f"{want.dtype}{tuple(want.shape)}")
+    d = ((got.double() - want.double()).abs() / scale).max().item()
+    if not d <= MASS_REL:
+        raise Mismatch(f"{what}: max err {d} of the row's scale > {MASS_REL}")
+    return d
+
+
+def planted_mass(what, mass, want, scale):
+    """A wrong mass that ``mass_err`` must refuse: its reading."""
+    try:
+        mass_err(mass, want, scale, what)
+    except Mismatch:
+        return ((mass.double() - want.double()).abs() / scale).max().item()
+    raise Mismatch(f"{what}: the mass check passes a planted wrong mass")
+
+
+def b3_slot_cases(da, dev, flush):
+    """``SLOT_SHAPES`` in f32 and bf16: each block's partial kernel against
+    its plain version (and its raw scores), each rank's merge kernel
+    against its plain version on the same partials, the law with the
+    kernels against the unsharded B3 and against the law with the plain
+    versions (``o`` within ``ATTN_TOL``, the mass within ``MASS_REL`` of
+    its row's scale, in bf16 ``o`` also within ``B3_BF16_C`` units of the
+    plain version in f32), the same bits from two runs of the law; two
+    planted masses that the mass check must refuse (the merge kernel with
+    each head's ``(m, l)`` taken from the next head, and a uniform mass
+    over the valid slots); ``SLOT_TIMED`` in bf16 timed: a block's
+    partial and a rank's merge with the L2 cache cold, beside their byte
+    bounds and plain versions, and the unsharded B3 over the whole table.
+    Returns (rows, errors, timed)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows, err, timed = [], {"partial": 0.0, "merge": 0.0}, {}
+    for name, B, S, H, Hkv, D, Dv, cap, pattern, n in SLOT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, H, D), dtype, dev)
+            k = randn(gen, (B, S, Hkv, D), dtype, dev)
+            v = randn(gen, (B, S, Hkv, Dv), dtype, dev)
+            valid = decode_valid(pattern, B, S, gen, dev)
+            what = f"B3 sharded {name} {dtype}"
+            tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+            o, mass, parts, scores, padded, ml = b3_sharded(
+                da, q, k, v, valid, cap, n)
+            o2, mass2 = b3_sharded(da, q, k, v, valid, cap, n)[:2]
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(mass, mass2)):
+                raise Mismatch(f"{what}: two runs differ")
+            del o2, mass2
+            uo, um = da.decode_attention(q, k, v, valid, softcap=cap)
+            scale = um.double().amax(-1, keepdim=True)
+            Sb, hn = S // n, padded.shape[2] // n
+            e_part = e_merge = e_merge_rel = 0.0
+            # the merge with each head's (m, l) from the next head's
+            rolled = ml.roll(-1, dims=2).contiguous()
+            wrong = []
+            for r in range(n):
+                blk = slice(r * Sb, (r + 1) * Sb)
+                pp, ps = da.decode_attention_partial_plain(
+                    q, k[:, blk], v[:, blk], valid, r * Sb, softcap=cap)
+                e_part = max(e_part, part_err(parts[r], pp,
+                                              f"{what} partial {r}"),
+                             close_err(scores[r], ps, ATTN_TOL["float32"],
+                                       f"{what} scores {r}"))
+                mine = padded[:, :, r * hn:(r + 1) * hn]
+                po, pm = da.decode_attention_merge_plain(mine, ml, scores[r],
+                                                         dtype=dtype)
+                mo, mm = da.decode_attention_merge(mine, ml, scores[r],
+                                                   dtype=dtype)
+                e_merge = max(e_merge, close_err(mo.float(), po.float(), tol,
+                                                 f"{what} merge {r} o"),
+                              (mm.double() - pm.double()).abs().max().item())
+                e_merge_rel = max(e_merge_rel, mass_err(
+                    mm, pm, scale, f"{what} merge {r} mass"))
+                wrong.append(da.decode_attention_merge(
+                    mine, rolled, scores[r], dtype=dtype)[1])
+            del pp, ps, po, pm, mo, mm
+            lo, lm = b3_sharded(da, q, k, v, valid, cap, n, plain=True)[:2]
+            fetched = torch.where(valid.any(-1, keepdim=True), valid, True)
+            uniform = fetched / fetched.sum(-1, keepdim=True).float()
+            row = {"kernel": "B3 sharded", "case": name, "dtype": str(dtype),
+                   "shape": [B, S, H, Hkv, D, Dv], "blocks": n,
+                   "softcap": cap, "valid": pattern,
+                   "valid_slots": int(valid.sum()),
+                   "empty_blocks": int((~valid.reshape(B, n, Sb).any(-1)
+                                        & valid.any(-1)[:, None]).sum()),
+                   "partial_max_err": e_part, "merge_max_abs_err": e_merge,
+                   "merge_mass_rel": e_merge_rel,
+                   "vs_unsharded_o": close_err(o.float(), uo.float(), tol,
+                                               what + " vs unsharded o"),
+                   "vs_unsharded_mass_rel": mass_err(
+                       mass, um, scale, what + " vs unsharded mass"),
+                   "vs_unsharded_mass_abs": (mass - um).abs().max().item(),
+                   "mass_scale": [scale.min().item(), scale.max().item()],
+                   "vs_plain_o": close_err(o.float(), lo.float(), tol,
+                                           what + " vs plain o"),
+                   "vs_plain_mass_rel": mass_err(mass, lm, scale,
+                                                 what + " vs plain mass"),
+                   "planted_neighbour_ml_rel": planted_mass(
+                       what + " planted (m, l) of the next head",
+                       torch.cat(wrong, dim=-1), um, scale),
+                   "planted_uniform_rel": planted_mass(
+                       what + " planted uniform mass", uniform, um, scale),
+                   "tol": tol, "mass_rel": MASS_REL,
+                   "bit_identical_run_to_run": True}
+            del uo, um, lo, lm, wrong, uniform, rolled
+            if dtype == torch.bfloat16:
+                want32, _ = da.decode_attention_plain(
+                    q.float(), k.float(), v.float(), valid, softcap=cap)
+                row["scaled_err"] = bf16_units(o, want32, bf16_scale(want32))
+                if not row["scaled_err"] <= B3_BF16_C:
+                    raise Mismatch(f"{what}: o {row['scaled_err']} > "
+                                   f"{B3_BF16_C} units of bf16 rounding")
+                del want32
+            err["partial"] = max(err["partial"], e_part)
+            err["merge"] = max(err["merge"], e_merge)
+            rows.append(row)
+            if name == SLOT_TIMED and dtype == torch.bfloat16:
+                timed = b3_slot_timing(da, q, k, v, valid, cap, n, flush)
+            del q, k, v, o, mass, parts, scores, padded, ml
+            torch.cuda.empty_cache()
+    return rows, err, timed
+
+
+def b3_slot_timing(da, q, k, v, valid, cap, n, flush):
+    """The sharded law at one case, bf16, L2 cold (``cold_ms``): block 0's
+    partial (a rank's kernel time a step) and rank 0's merge with its
+    block's mass, each beside its byte bound and its plain version's ms;
+    the unsharded B3 over the whole table beside them."""
+    import torch
+    from repro_torch.launch import roofline as R
+    S = k.shape[1]
+    Sb = S // n
+    kb, vb = k[:, :Sb].contiguous(), v[:, :Sb].contiguous()
+    part, sc = da.decode_attention_partial(q, kb, vb, valid, 0, softcap=cap)
+    parts = torch.stack([da.pad_heads(part, n)] * n)
+    ml = torch.stack([part[..., -2:]] * n).contiguous()
+    mine = parts[:, :, :parts.shape[2] // n].contiguous()
+    p_ms, p_by = R.partial_bound(q, kb, vb, valid, 0)
+    m_ms, m_by = R.merge_bound(mine, ml, sc, q.dtype)
+    out = {"shape": [q.shape[0], S, q.shape[1], k.shape[2], q.shape[2],
+                     v.shape[3]], "blocks": n, "block_slots": Sb,
+           "dtype": "bfloat16", "chunk": da.chunk_len(q.shape[0], k.shape[2],
+                                                     Sb)}
+    out["partial"] = {
+        "ms": cold_ms(lambda: da.decode_attention_partial(
+            q, kb, vb, valid, 0, softcap=cap), flush, reps=20),
+        "plain_ms": cuda_ms(lambda: da.decode_attention_partial_plain(
+            q, kb, vb, valid, 0, softcap=cap), reps=5),
+        "bound_ms": p_ms, "bound_by": p_by}
+    out["merge"] = {
+        "ms": cold_ms(lambda: da.decode_attention_merge(
+            mine, ml, sc, dtype=q.dtype), flush, reps=20),
+        "plain_ms": cuda_ms(lambda: da.decode_attention_merge_plain(
+            mine, ml, sc, dtype=q.dtype), reps=5),
+        "bound_ms": m_ms, "bound_by": m_by}
+    for row in (out["partial"], out["merge"]):
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    u_ms, _ = R.decode_bound(q, k, v, valid)
+    out["unsharded"] = {
+        "ms": cold_ms(lambda: da.decode_attention(q, k, v, valid,
+                                                  softcap=cap),
+                      flush, reps=20), "bound_ms": u_ms}
+    return out
 
 
 def sdpa_backends(qt, kt, vt):
@@ -1223,12 +1501,16 @@ def phase_attention(dev):
                     valid = torch.ones_like(valid)
                 timed[name] = b3_timing(da, q, k, v, valid, cap, flush)
             del q, k, v, o, o2, po
+    slot_rows, slot_err, timed["slot"] = b3_slot_cases(da, dev, flush)
+    rows += slot_rows
+    err.update(slot_err)
     # what cold_ms reads for no work at all: the floor under B3's times
     event_pair_ms = cold_ms(lambda: None, flush, reps=20)
     del flush_buf
     torch.cuda.empty_cache()
     b2_bf16 = [r for r in rows if "scaled_err" in r and r["kernel"] == "B2"]
     b3_bf16 = [r for r in rows if "scaled_err" in r and r["kernel"] == "B3"]
+    slot_bf16 = [r for r in slot_rows if "scaled_err" in r]
     return ({"phase": "attention_kernels", "cases": rows,
              "b2_bf16_scaled_err_max": max(r["scaled_err"] for r in b2_bf16),
              "b2_bf16_dropped_keys_scaled_err_min": min(
@@ -1238,6 +1520,8 @@ def phase_attention(dev):
              "b3_bf16_dropped_tile_scaled_err_min": min(
                  r["dropped_tile_scaled_err"] for r in b3_bf16),
              "b3_bf16_limit": B3_BF16_C,
+             "b3_sharded_bf16_scaled_err_max": max(
+                 r["scaled_err"] for r in slot_bf16),
              "b3_rows_within_margin": near_ties,
              "b3_event_pair_ms": event_pair_ms, "timed": timed},
             err, timed)
@@ -2680,10 +2964,11 @@ def phase_multi(dev):
 # ---------------------------------------------------------------------------
 
 # the corpus: one dataset per DATASET_FAMILIES entry, a trace per seed, each
-# CAMPAIGN_TRACE_T requests long (12 MB an oracleGeneral file; 1,000,000
-# until the smoke had to fit a slower host, PERF.md §4), so that a
-# whole-trace cell still streams through two of ingest's 2^18-request chunks
-CAMPAIGN_TRACE_T = 500_000
+# CAMPAIGN_TRACE_T requests long (7.2 MB an oracleGeneral file; 1,000,000
+# until the smoke had to fit a slower host, 500,000 until phase 15 served
+# on 16 ranks, PERF.md §4), so that a whole-trace cell still streams
+# through two of ingest's 2^18-request chunks
+CAMPAIGN_TRACE_T = 300_000
 CAMPAIGN_TRACE_SEEDS = (0, 1)
 # the one trace written as a gzipped CSV with costs; the rest are
 # uncompressed oracleGeneral files with sizes
@@ -3537,7 +3822,7 @@ ALLOC_ROUND = 512
 DRYRUN_ARCH = "deepseek-7b"
 
 
-def phase_dryrun(dev, serve):
+def phase_dryrun(dev, serve, slot):
     """Phase 17: the dry run (``repro_torch.launch.dryrun``) against what
     the card holds and how long a step took, traced on fake tensors on
     ``dev`` (nothing on the card).  The decode step at phase 6's shape
@@ -3546,7 +3831,11 @@ def phase_dryrun(dev, serve):
     held for them, within its rounding; its modelled roofline terms beside
     phase 6's measured ms a step and device-busy ms.  ``decode_32k`` on the
     (16, 16) pod mesh in a fake world of 256 ranks: bytes a rank and the
-    dominant term.  The phase's seconds include torch's first use of
+    dominant term.  Phase 15's world (c) (``slot``: its rank 0's step
+    arguments): qwen1.5-110b's 1-layer rank on the (data 1, model 16)
+    mesh in a fake world of 16, its argument bytes equal to what the
+    rank's allocator held, within its rounding, and its KV bytes (a 16th
+    of the slots) equal.  The phase's seconds include torch's first use of
     ``FakeTensorMode`` (it imports ``torch._dynamo``), timed apart as
     ``first_use_s``.  No step runs on the card."""
     t_phase = time.perf_counter()
@@ -3580,6 +3869,9 @@ def phase_dryrun(dev, serve):
     pod_s = time.perf_counter() - t1
     pod = dryrun.summarize(ana, n, meta, mem, shape, cfg)
     credited = pod["roofline"]["kernel_credited"]
+    t1 = time.perf_counter()
+    slot_rank = dryrun_slot_rank(dev, slot)
+    slot_rank["s"] = time.perf_counter() - t1
     return {"phase": "dryrun",
             "step_args": {"dryrun_bytes": got, "allocated_bytes": want,
                           "difference": want - got, "allowed": slack,
@@ -3601,8 +3893,53 @@ def phase_dryrun(dev, serve):
                 "terms_ms": {k[:-2]: pod["roofline"][k] * 1e3 for k in
                              ("compute_s", "memory_s", "collective_s")},
                 "kernel_credited_memory_ms": credited["memory_s"] * 1e3},
+            "slot_rank": slot_rank,
             "first_use_s": first_use_s, "single_s": single_s,
             "pod_s": pod_s, "s": time.perf_counter() - t_phase}
+
+
+def dryrun_slot_rank(dev, held):
+    """Rank 0 of phase 15's world (c) reckoned by the dry run's means
+    (``init_params_shape``, ``serve_state_specs`` with ``sctx=`` in a fake
+    world of MG_SLOT_WORLD, ``dryrun.tree_bytes``): its argument bytes
+    (the blocks, a fresh unbounded state, a token) within the allocator's
+    rounding of what the rank held, its KV bytes equal."""
+    import dataclasses
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params_shape
+    from repro_torch.serving.serve_step import kv_bytes, serve_state_specs
+    cfg = dataclasses.replace(ARCHS[MG_SLOT_ARCH], n_layers=1)
+    with dryrun.fake_world(MG_SLOT_WORLD):
+        mesh = M.make_test_mesh(1, MG_SLOT_WORLD,
+                                device_type=torch.device(dev).type)
+        sctx = M.shard_ctx(mesh, mode="serve")
+        mode = FakeTensorMode()
+        params = init_params_shape(cfg, sctx, dev, mode)
+        state = serve_state_specs(cfg, held["B"], held["max_len"], sctx=sctx,
+                                  device=dev, mode=mode)
+        with mode:
+            token = torch.zeros(held["B"], dtype=torch.int64, device=dev)
+        args = (params, state, token)
+        got, storages = dryrun.tree_bytes(args), len(dryrun._storages(args))
+        kv = kv_bytes(state)
+    want, slack = held["allocated_bytes"], (ALLOC_ROUND - 1) * storages
+    if kv != held["kv_bytes"]:
+        raise AssertionError(f"phase 17: the dry run reckons {kv} KV bytes "
+                             f"for (c)'s rank, the rank held "
+                             f"{held['kv_bytes']}")
+    if want is not None and not 0 <= want - got <= slack:
+        raise AssertionError(
+            f"phase 17: the dry run reckons {got} argument bytes for (c)'s "
+            f"rank, the rank held {want} (allowed: 0 to {slack} more)")
+    return {"dryrun_bytes": got, "allocated_bytes": want,
+            "difference": None if want is None else want - got,
+            "allowed": slack, "storages": storages, "kv_bytes": kv}
 
 
 # -- phase 15: multi-GPU ----------------------------------------------------
@@ -3829,8 +4166,9 @@ def mg_world_cpu():
 
 
 def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
-                 margins=None):
-    """Prefill ``toks[:, :S]`` and ``steps`` teacher-forced decode steps:
+                 margins=None, max_len=None):
+    """Prefill ``toks[:, :S]`` and ``steps`` teacher-forced decode steps
+    (``max_len`` slots unbounded, ``S + steps`` by default):
     logits, the pooled layers' control state after each step (under a
     mesh its rows gathered over ``data``), prefill seconds and decode ms a
     step (host clock, each ending in a synchronise), and the state after
@@ -3843,7 +4181,7 @@ def mg_serve_run(params, cfg, sctx, toks, S, steps, budget, impl="kernel",
     _sync(dev)
     t0 = time.perf_counter()
     state, last = prefill(params, cfg, tokens=toks[:, :S], budget=budget,
-                          max_len=S + steps, impl=impl, sctx=sctx)
+                          max_len=max_len or S + steps, impl=impl, sctx=sctx)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     logs, ctrls = [last], []
@@ -4551,6 +4889,182 @@ def mg_train_summary(rows):
             "s": [row["s"] for row in rows]}
 
 
+# (c) MG_SLOT_WORLD gloo ranks sharing the card on a (data 1, model 16)
+# mesh: qwen1.5-110b at full width, its depth cut to 1 of 80 layers (the
+# only cut): 8 KV heads do not split 16 ways, so its cache splits by slots
+# (a rank holds 1/16 of them, every head), B3 runs as a partial on each
+# rank's block and a merge over the ranks.  bf16, B = MG_SLOT_B x
+# MG_SLOT_S, MG_SLOT_STEPS steps, both regimes (pool MG_SERVE_BUDGET),
+# MG_SLOT_LEN slots unbounded (a multiple of 16); then f32, B = MG_SLOT_B x
+# MG_SLOT_F32_S, MG_SLOT_F32_STEPS steps against the unsharded port on rank
+# 0 (run first and alone), bounded in a pool of MG_SLOT_F32_BUDGET slots
+# (3 a rank), fewer than the prompt's, so that every step evicts
+MG_SLOT_WORLD, MG_SLOT_ARCH = 16, "qwen1.5-110b"
+MG_SLOT_B, MG_SLOT_S, MG_SLOT_STEPS = 8, 128, 2
+MG_SLOT_LEN = 144
+MG_SLOT_F32_S, MG_SLOT_F32_STEPS, MG_SLOT_F32_LEN = 64, 2, 80
+MG_SLOT_F32_BUDGET = 48
+
+
+def mg_world_c(dev):
+    """(c): the step's arguments on the card (rank 0's, which phase 17
+    holds the dry run's reckoning to), the timed bf16 runs (B2 and B3's
+    partial and merge counted on each rank; B3 whole never launches; KV
+    bytes a rank against the unsharded cache's), then the f32 check
+    (``mg_slot_f32``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params
+    from repro_torch.serving import serve_step as ss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = M.make_test_mesh(1, MG_SLOT_WORLD)
+    sctx = M.shard_ctx(mesh, mode="serve")
+    cfg = dataclasses.replace(ARCHS[MG_SLOT_ARCH], n_layers=1)
+    cuda = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    _sync(dev)
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    local = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, sctx=sctx)
+    _empty(dev)                     # the draws' slices
+    state = ss.init_serve_state(cfg, MG_SLOT_B, MG_SLOT_LEN, device=dev,
+                                sctx=sctx)
+    token = torch.zeros(MG_SLOT_B, dtype=torch.int64, device=dev)
+    out = {"step_args": {
+        "allocated_bytes": (torch.cuda.memory_allocated() - mem0 if cuda
+                            else None),
+        "B": MG_SLOT_B, "max_len": MG_SLOT_LEN,
+        "kv_bytes": ss.kv_bytes(state)},
+        "build_s": time.perf_counter() - t0, "launches": {}}
+    del state, token
+    toks = prompt_tokens(cfg, MG_SLOT_B, MG_SLOT_S + MG_SLOT_STEPS, dev, n=19)
+    for regime, budget in (("unbounded", 0), ("bounded", MG_SERVE_BUDGET)):
+        fa.LAUNCHES = da.LAUNCHES = 0
+        da.PARTIAL_LAUNCHES = da.MERGE_LAUNCHES = 0
+        run = mg_serve_run(local, cfg, sctx, toks, MG_SLOT_S, MG_SLOT_STEPS,
+                           budget, max_len=MG_SLOT_LEN)
+        launches = {"b2": fa.LAUNCHES, "b3": da.LAUNCHES,
+                    "b3_partial": da.PARTIAL_LAUNCHES,
+                    "b3_merge": da.MERGE_LAUNCHES}
+        want = {"b2": 1, "b3": 0, "b3_partial": MG_SLOT_STEPS,
+                "b3_merge": MG_SLOT_STEPS}
+        if cuda and launches != want:
+            raise AssertionError(f"(c) {regime}: launches {launches}, "
+                                 f"expected {want}")
+        for k, n in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if not all(bool(torch.isfinite(x).all()) for x in run["logits"]):
+            raise AssertionError(f"(c) {regime}: logits not finite")
+        L = budget or MG_SLOT_LEN
+        whole = 2 * MG_SLOT_B * L * cfg.n_kv_heads * cfg.head_dim * \
+            torch.empty((), dtype=cfg.dtype).element_size()
+        mine = ss.kv_bytes(run["state"])
+        if MG_SLOT_WORLD * mine != whole or not all(
+                "slots" in st for st in run["state"]["layers"]):
+            raise AssertionError(f"(c) {regime}: a rank holds {mine} KV "
+                                 f"bytes of the whole cache's {whole}")
+        out[regime] = {"prefill_s": run["prefill_s"],
+                       "step_ms": run["step_ms"], "kv_bytes_rank": mine,
+                       "kv_bytes_unsharded": whole, "slots": L,
+                       "logits_shape": list(run["logits"][-1].shape)}
+        del run
+    del local
+    _empty(dev)
+    out["f32"] = mg_slot_f32(dev, sctx)
+    return out
+
+
+def mg_slot_f32(dev, sctx):
+    """(c)'s model in f32 on the mesh against the unsharded port on rank 0
+    (built and run alone first, then freed), both regimes (the bounded
+    pool smaller than the prompt: its steps evict, checked): logits
+    within SERVE_LOGIT_TOL, DAC's control equal unless a near-tie explains
+    it; the sharded logits' digest (every rank's must be rank 0's)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.serving import serve_step as ss
+    cfg = dataclasses.replace(ARCHS[MG_SLOT_ARCH], n_layers=1,
+                              param_dtype="float32")
+    toks = prompt_tokens(cfg, MG_SLOT_B, MG_SLOT_F32_S + MG_SLOT_F32_STEPS,
+                         dev, n=20)
+    rank = torch.distributed.get_rank()
+    regimes = (("unbounded", 0), ("bounded", MG_SLOT_F32_BUDGET))
+    top_slot, margins, wants = ss._top_slot, [], {}
+    run_kw = dict(max_len=MG_SLOT_F32_LEN)
+
+    def recording_top(mass, valid):
+        if margins:
+            top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+            margins[-1].append(float((top2[:, 0] - top2[:, 1]).min()))
+        return top_slot(mass, valid)
+
+    t0 = time.perf_counter()
+    if rank == 0:
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+        ss._top_slot = recording_top
+        try:
+            for regime, budget in regimes:
+                del margins[:]
+                run = mg_serve_run(full, cfg, None, toks, MG_SLOT_F32_S,
+                                   MG_SLOT_F32_STEPS, budget, margins=margins,
+                                   **run_kw)
+                run["state"] = None
+                wants[regime] = (run, [min(m, default=float("inf"))
+                                       for m in margins])
+        finally:
+            ss._top_slot = top_slot
+        del full, run
+        _empty(dev)
+    torch.distributed.barrier()
+    rows = {"unsharded_s": time.perf_counter() - t0}
+    local = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, sctx=sctx)
+    _empty(dev)
+    for regime, budget in regimes:
+        got = mg_serve_run(local, cfg, sctx, toks, MG_SLOT_F32_S,
+                           MG_SLOT_F32_STEPS, budget, **run_kw)
+        row = {"digest": _digest({str(i): x.cpu().numpy() for i, x in
+                                  enumerate(got["logits"])})}
+        if budget:
+            row["evicting"] = pool_evicted(got["state"], budget,
+                                           MG_SLOT_F32_S)
+        got["state"] = None
+        if rank == 0:
+            want, least = wants[regime]
+            row.update(mg_compare(got, want, least, budget,
+                                  f"(c) f32 {regime} vs unsharded"))
+        rows[regime] = row
+    del local, got
+    _empty(dev)
+    torch.distributed.barrier()
+    rows["s"] = time.perf_counter() - t0
+    return rows
+
+
+def pool_evicted(state, budget, S):
+    """That every decode step after a prompt of ``S`` > ``budget`` tokens
+    wrote over a live slot: each pooled layer's pool full at the end (its
+    length the budget; DAC cannot shrink it in a few steps) and holding a
+    decode step's token.  Raises otherwise; returns True."""
+    for st in state["layers"]:
+        ctrl = st.get("ctrl")
+        if ctrl is None:
+            continue
+        if not (S > budget and bool((ctrl["length"] == budget).all())
+                and bool((ctrl["slot_pos"].amax(-1) >= S).all())):
+            raise AssertionError(f"the pool of {budget} slots did not "
+                                 f"evict after a {S}-token prompt")
+    return True
+
+
 def mg_probe_gloo(dev):
     """Whether gloo's ``all_gather`` takes a tensor on ``dev`` (the one
     collective the port uses; the gloo ranks on the card rely on it)."""
@@ -4651,7 +5165,8 @@ def phase_multi_gpu(dev, tmp):
     built already, so no rank builds one): (a) one NCCL rank, and beside
     it (b)'s fleets in MG_WORLD gloo ranks on the CPU; then (b) MG_WORLD
     gloo ranks sharing the card, which start up beside (a) and measure
-    once (a) and the CPU world are done."""
+    once (a) and the CPU world are done; then (c) MG_SLOT_WORLD gloo ranks
+    sharing the card, slot-split KV caches (``mg_world_c``)."""
     from repro_torch.core.simulator import GRAPH_CHUNK
     from repro_torch.fleet import replay_fleet
     from repro_torch.launch import mesh as M
@@ -4688,6 +5203,19 @@ def phase_multi_gpu(dev, tmp):
         t0 = time.perf_counter()
         b = b.result()
         b_s = time.perf_counter() - t0
+    # (c) after (b), alone: starting its 16 ranks beside (a) and (b)
+    # slowed both more than it saved
+    t0 = time.perf_counter()
+    slot = M.launch_world(mg_world_c, MG_SLOT_WORLD, (dev,),
+                          init_file=str(tmp / "c"), backend="gloo",
+                          device=dev, timeout=MG_TIMEOUT)
+    slot_s = time.perf_counter() - t0
+    for r, out in enumerate(slot):
+        for regime in ("unbounded", "bounded"):
+            if out["f32"][regime]["digest"] != \
+                    slot[0]["f32"][regime]["digest"]:
+                raise Mismatch(f"(c) rank {r} f32 {regime}: logits not "
+                               "rank 0's")
     cpu_rank_s = [c[1] for c in cpu]
     cpu = [c[0] for c in cpu]
     for r, (out, want) in enumerate(zip(b, cpu)):
@@ -4764,6 +5292,24 @@ def phase_multi_gpu(dev, tmp):
             "f32": rows[0]["f32"], "s": [r["s"] for r in rows]}
     for out in b:
         del out["serve"]["archs"]
+    for out in slot:
+        for regime in ("unbounded", "bounded"):
+            del out["f32"][regime]["digest"]
+    res["c"] = {
+        "world": MG_SLOT_WORLD, "arch": MG_SLOT_ARCH, "layers": 1,
+        "mesh": {"data": 1, "model": MG_SLOT_WORLD}, "s": slot_s,
+        "step_args": slot[0]["step_args"],
+        **{f"{regime}_{k}": [out[regime][k] for out in slot]
+           for regime in ("unbounded", "bounded")
+           for k in ("prefill_s", "step_ms")},
+        **{f"{regime}_kv_bytes": {
+            "rank": slot[0][regime]["kv_bytes_rank"],
+            "unsharded": slot[0][regime]["kv_bytes_unsharded"],
+            "slots": slot[0][regime]["slots"]}
+           for regime in ("unbounded", "bounded")},
+        "launches_a_rank": [out["launches"] for out in slot],
+        "build_s": [out["build_s"] for out in slot],
+        "f32": slot[0]["f32"]}
     serve = [out["serve"] for out in b]
     train = mg_train_summary([out.pop("train") for out in b])
     a["fleet"] = {k: {f: v[f] for f in ("s", "T", "b1_launches", "redeals")}
@@ -4785,8 +5331,11 @@ def phase_multi_gpu(dev, tmp):
                         "after_a_s": cpu_after_a_s, "rank_s": cpu_rank_s}
     launches = {
         "b1": a["b1_launches"] + sum(out["b1_launches"] for out in b),
-        "b2": sum(s["b2_launches"] for s in serve),
-        "b3": sum(s["b3_launches"] for s in serve)}
+        "b2": sum(s["b2_launches"] for s in serve)
+        + sum(out["launches"]["b2"] for out in slot),
+        "b3": sum(s["b3_launches"] for s in serve),
+        "b3_partial": sum(out["launches"]["b3_partial"] for out in slot),
+        "b3_merge": sum(out["launches"]["b3_merge"] for out in slot)}
     if dev == "cuda" and not all(launches.values()):
         raise AssertionError(f"phase 15 launched a kernel no time: "
                              f"{launches}")
@@ -4866,13 +5415,14 @@ def main() -> int:
     emit(phase_train(dev))
     res, analysis_launches = phase_analysis(dev)
     emit(res)
-    emit(phase_dryrun(dev, serve))
     # the kernels are built: spawned ranks load them
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
         res, mg_launches = phase_multi_gpu(dev, tmp)
     emit(res)
+    emit(phase_dryrun(dev, serve, res["c"]["step_args"]))
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
+    part, merge = attn["slot"]["partial"], attn["slot"]["merge"]
     print(json.dumps({"kernels": [{
         "name": "policy_replay", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
@@ -4910,6 +5460,24 @@ def main() -> int:
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         # no single PyTorch call gives both o and the per-slot mass
+        "library_ms": None}, {
+        "name": "decode_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:136",
+        # phase 15's world (c): a step a layer on each of its ranks
+        "launches": mg_launches["b3_partial"],
+        "max_abs_err": attn_err["partial"],
+        "ms": part["ms"], "plain_ms": part["plain_ms"],
+        "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
+        # no single PyTorch call gives a block's (acc, m, l) and scores
+        "library_ms": None}, {
+        "name": "decode_attention_merge", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:161",
+        "launches": mg_launches["b3_merge"],
+        "max_abs_err": attn_err["merge"],
+        "ms": merge["ms"], "plain_ms": merge["plain_ms"],
+        "bound_ms": merge["bound_ms"], "bound_by": merge["bound_by"],
         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,25 @@
 //   shared memory, then a thread a slot sums mass = (sum_h p_h) / H in
 //   head order 0..H-1.
 //
+// A slot table split over ranks (a KV cache whose heads do not divide the
+// model axis; the slots [s0, s0 + S) of rows of S_row on each rank) runs in
+// two parts, the cross-slot softmax that the reference's GSPMD program does
+// implicitly:
+//
+// decode_attention_partial: the split kernel over the rank's block, which
+//   reads the whole row's valid (S_row bytes) to learn whether the row has
+//   a valid slot and its chunk's bytes at s0; then decode_attn_fold folds
+//   the block's splits of each (batch row, head) in split order into one
+//   (acc, m, l), l not clamped: a block with no valid slot in a row that
+//   has some gives m = -1e30, l = 0, acc = 0, which weighs nothing; a row
+//   with none anywhere weighs every slot alike, as above.  Bound: the
+//   block's share of the whole call's bytes.
+// decode_attention_merge: decode_attn_merge, the combine with a rank axis
+//   in place of the split axis: o blocks fold a head's N partials (m, l
+//   clamped at 1e-30, o = sum_r e^(m_r - m) acc_r / l) in rank order; mass
+//   blocks fold every head's (m, l) over the ranks and write the mass of
+//   one block's slots.  Its bytes are the partials, not the cache.
+//
 // Nothing is summed with atomics and every sum has a fixed order, so o and
 // mass (whose argmax picks the slot DAC promotes) are the same bit for bit
 // from run to run.  An invalid slot beside a valid one gets p = 0 exactly:
@@ -185,8 +204,8 @@ __global__ void __launch_bounds__(NT, 4)
 decode_attn_split(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const uint8_t* __restrict__ valid,
                   float* __restrict__ scores, float* __restrict__ part,
-                  int S, int H, int Hkv, int D, int Dv, int chunk,
-                  float scale, float softcap) {
+                  int S, int S_row, int s0, int H, int Hkv, int D, int Dv,
+                  int chunk, float scale, float softcap) {
   constexpr int E = 16 / sizeof(T);         // elements per 16-byte piece
   constexpr int PPL = sizeof(T) == 4 ? 2 : 1;   // V pieces a lane, at most
   extern __shared__ __align__(16) unsigned char smem[];
@@ -216,14 +235,15 @@ decode_attn_split(const T* __restrict__ q, const T* __restrict__ k,
   const long kv_k = (long)Hkv * D, kv_v = (long)Hkv * Dv;
   const T* kb = k + ((long)b * S + s_lo) * kv_k + (long)hk * D;
   const T* vb = v + ((long)b * S + s_lo) * kv_v + (long)hk * Dv;
-  const uint8_t* vrow = valid + (long)b * S;
+  const uint8_t* vrow = valid + (long)b * S_row;
   const bool vec = (D * sizeof(T)) % 16 == 0 &&
                    (Dv * sizeof(T)) % 16 == 0 &&
                    ((reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
 
-  // q scaled; the row's valid in 16-byte words (its ragged ends byte by
-  // byte); the chunk's valid bytes, all loads of a thread in flight at once
+  // q scaled; the whole row's valid in 16-byte words (its ragged ends byte
+  // by byte); the chunk's valid bytes (at s0 + s_lo of the row), all loads
+  // of a thread in flight at once
 #pragma unroll 8
   for (int i = threadIdx.x; i < GB * dkp; i += NT) {
     const int h = i / dkp, d = i - h * dkp;
@@ -234,8 +254,8 @@ decode_attn_split(const T* __restrict__ q, const T* __restrict__ k,
   int any = 0;
   {
     const int head = min(
-        S, (int)((16 - (reinterpret_cast<uintptr_t>(vrow) & 15)) & 15));
-    const int nvec = (S - head) / 16;
+        S_row, (int)((16 - (reinterpret_cast<uintptr_t>(vrow) & 15)) & 15));
+    const int nvec = (S_row - head) / 16;
     const uint4* body = reinterpret_cast<const uint4*>(vrow + head);
 #pragma unroll 4
     for (int i = threadIdx.x; i < nvec; i += NT) {
@@ -244,14 +264,14 @@ decode_attn_split(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (threadIdx.x < head) any |= vrow[threadIdx.x];
     const int tail = head + 16 * nvec + threadIdx.x;
-    if (tail < S) any |= vrow[tail];
+    if (tail < S_row) any |= vrow[tail];
   }
   {
     uint8_t x[MAX_CHUNK / NT];
 #pragma unroll
     for (int u = 0; u < MAX_CHUNK / NT; ++u) {
       const int r = threadIdx.x + u * NT;
-      x[u] = r < clen ? vrow[s_lo + r] : 0;
+      x[u] = r < clen ? vrow[s0 + s_lo + r] : 0;
     }
 #pragma unroll
     for (int u = 0; u < MAX_CHUNK / NT; ++u) {
@@ -570,6 +590,102 @@ decode_attn_combine(const float* __restrict__ part,
   }
 }
 
+// A block's partial: its splits' (m_i, l_i, acc_i) of one (batch row,
+// head) folded in split order into part_out [B, H, Dv + 2], a thread per
+// column: m = max_i m_i, l = sum_i e^(m_i - m) l_i, acc = sum_i e^(m_i - m)
+// acc_i.  l is not clamped: a block with no valid slot in a row that has
+// some keeps m = -1e30, l = 0, acc = 0, which weighs nothing in the merge.
+__global__ void __launch_bounds__(CT)
+decode_attn_fold(const float* __restrict__ part, float* __restrict__ out,
+                 long n, int Dv, int n_split) {
+  const long P = Dv + 2;
+  const long i = (long)blockIdx.x * CT + threadIdx.x;
+  if (i >= n) return;
+  const long bh = i / P;
+  const int d = (int)(i - bh * P), c = d < Dv ? d : Dv + 1;
+  const float* pb = part + bh * n_split * P;
+  float m = NEG_INF;
+  for (int j = 0; j < n_split; ++j) m = fmaxf(m, pb[j * P + Dv]);
+  float x = 0.f;
+  for (int j = 0; j < n_split; ++j)
+    x = fmaf(expf(pb[j * P + Dv] - m), pb[j * P + c], x);
+  out[i] = d == Dv ? m : x;
+}
+
+// The merge of N blocks' partials (the ranks' blocks of a slot table, in
+// rank order), the combine kernel with a rank axis in place of the split
+// axis.  Blocks [0, n_o): o of o_heads(Dv) of the Hn heads of parts
+// [N, B, Hn, Dv + 2] for a batch row, a thread per (head, column): m and l
+// folded over the ranks (fold), o = (sum_r e^(m_r - m) acc_r) / l in rank
+// order.  Then, where scores is given, a block per mass_slots(H) slots of a
+// batch row of one block's raw scores [B, H, S]: every head's (m, l) folded
+// over the ranks from ml [N, B, H, 2], p = e^(s_h - m_h) / l_h, mass =
+// (sum_h p_h) / H in head order.
+template <typename T>
+__global__ void __launch_bounds__(CT)
+decode_attn_merge(const float* __restrict__ parts,
+                  const float* __restrict__ ml,
+                  const float* __restrict__ scores, T* __restrict__ o,
+                  float* __restrict__ mass, int N, int B, int Hn, int H,
+                  int S, int Dv) {
+  extern __shared__ float sm[];
+  const long P = Dv + 2;
+  const int hb = o_heads(Dv), per_b = (Hn + hb - 1) / hb;
+  if ((int)blockIdx.x < B * per_b) {
+    const int b = blockIdx.x / per_b, h0 = (blockIdx.x % per_b) * hb;
+    const int nh = min(hb, Hn - h0);
+    float* mh = sm;
+    float* lh = sm + hb;
+    const long rs = (long)B * Hn * P;    // one rank's parts
+    const float* pb = parts + ((long)b * Hn + h0) * P;
+    for (int h = threadIdx.x; h < nh; h += CT) {
+      const float2 f = fold(pb + (long)h * P + Dv, rs, N);
+      mh[h] = f.x;
+      lh[h] = f.y;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nh * Dv; i += CT) {
+      const int h = i / Dv, d = i - h * Dv;
+      const float* ph = pb + (long)h * P;
+      float x = 0.f;
+      for (int r = 0; r < N; ++r)
+        x = fmaf(expf(ph[r * rs + Dv] - mh[h]), ph[r * rs + d], x);
+      o[((long)b * Hn + h0 + h) * Dv + d] = from_f<T>(x / lh[h]);
+    }
+    return;
+  }
+  const int ms = mass_slots(H), nmb = (S + ms - 1) / ms;
+  const int blk = blockIdx.x - B * per_b, b = blk / nmb;
+  const int s0 = (blk - b * nmb) * ms, ns = min(ms, S - s0);
+  float* mh = sm;
+  float* lh = sm + H;
+  float* p = lh + H;                   // [ms][H + 1]: p per slot and head
+  const long rs = (long)B * H * 2;     // one rank's (m, l) pairs
+  for (int h = threadIdx.x; h < H; h += CT) {
+    const float2 f = fold(ml + ((long)b * H + h) * 2, rs, N);
+    mh[h] = f.x;
+    lh[h] = f.y;
+  }
+  __syncthreads();
+  const float* sb = scores + (long)b * H * S + s0;
+  for (int i = threadIdx.x; i < ns * H; i += CT) {
+    const int h = i / ns, r = i - h * ns;
+    p[r * (H + 1) + h] = expf(sb[(long)h * S + r] - mh[h]) / lh[h];
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < ns; r += CT) {
+    float x = 0.f;
+    for (int h = 0; h < H; ++h) x += p[r * (H + 1) + h];
+    mass[(long)b * S + s0 + r] = x / (float)H;
+  }
+}
+
+inline size_t merge_smem(int H, int Dv) {
+  const size_t o_blk = 2 * o_heads(Dv);
+  const size_t m_blk = 2 * H + (size_t)mass_slots(H) * (H + 1);
+  return sizeof(float) * (o_blk > m_blk ? o_blk : m_blk);
+}
+
 // the split kernel's grid: (kv heads x groups of up to GMAX query heads,
 // splits, batch rows); the combine's blocks: o blocks, then mass blocks
 inline dim3 split_grid(int B, int S, int H, int Hkv, int chunk) {
@@ -584,9 +700,9 @@ inline int combine_blocks(int B, int S, int H, int Dv) {
 template <typename T, int GB>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const void* valid, void* scores, void* part,
-                         dim3 grid, int S, int H, int Hkv, int D, int Dv,
-                         int chunk, float scale, float softcap,
-                         cudaStream_t stream) {
+                         dim3 grid, int S, int S_row, int s0, int H, int Hkv,
+                         int D, int Dv, int chunk, float scale,
+                         float softcap, cudaStream_t stream) {
   const size_t smem = split_smem<T, GB>(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       decode_attn_split<T, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -595,9 +711,36 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   decode_attn_split<T, GB><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(scores), static_cast<float*>(part), S, H, Hkv, D,
-      Dv, chunk, scale, softcap);
+      static_cast<float*>(scores), static_cast<float*>(part), S, S_row, s0,
+      H, Hkv, D, Dv, chunk, scale, softcap);
   return cudaGetLastError();
+}
+
+// the split kernel over slots [s0, s0 + S) of rows of S_row slots (k, v,
+// scores and part hold the S slots; valid the whole rows)
+template <typename T>
+cudaError_t run_split(const void* q, const void* k, const void* v,
+                      const void* valid, void* scores, void* part, int B,
+                      int S, int S_row, int s0, int H, int Hkv, int D,
+                      int Dv, int chunk, float scale, float softcap,
+                      cudaStream_t stream) {
+  const int g = H / Hkv;
+  const dim3 grid = split_grid(B, S, H, Hkv, chunk);
+  const int gb = g < GMAX ? g : GMAX;
+  if (gb == 1)
+    return launch_split<T, 1>(q, k, v, valid, scores, part, grid, S, S_row,
+                              s0, H, Hkv, D, Dv, chunk, scale, softcap,
+                              stream);
+  if (gb == 2)
+    return launch_split<T, 2>(q, k, v, valid, scores, part, grid, S, S_row,
+                              s0, H, Hkv, D, Dv, chunk, scale, softcap,
+                              stream);
+  if (gb <= 4)
+    return launch_split<T, 4>(q, k, v, valid, scores, part, grid, S, S_row,
+                              s0, H, Hkv, D, Dv, chunk, scale, softcap,
+                              stream);
+  return launch_split<T, 8>(q, k, v, valid, scores, part, grid, S, S_row, s0,
+                            H, Hkv, D, Dv, chunk, scale, softcap, stream);
 }
 
 template <typename T>
@@ -606,23 +749,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* part, int B, int S, int H, int Hkv, int D, int Dv,
                    int chunk, float scale, float softcap,
                    cudaStream_t stream) {
-  const int g = H / Hkv;
-  const dim3 grid = split_grid(B, S, H, Hkv, chunk);
-  const int gb = g < GMAX ? g : GMAX;
-  cudaError_t err;
-  if (gb == 1)
-    err = launch_split<T, 1>(q, k, v, valid, scores, part, grid, S, H, Hkv,
-                             D, Dv, chunk, scale, softcap, stream);
-  else if (gb == 2)
-    err = launch_split<T, 2>(q, k, v, valid, scores, part, grid, S, H, Hkv,
-                             D, Dv, chunk, scale, softcap, stream);
-  else if (gb <= 4)
-    err = launch_split<T, 4>(q, k, v, valid, scores, part, grid, S, H, Hkv,
-                             D, Dv, chunk, scale, softcap, stream);
-  else
-    err = launch_split<T, 8>(q, k, v, valid, scores, part, grid, S, H, Hkv,
-                             D, Dv, chunk, scale, softcap, stream);
+  cudaError_t err = run_split<T>(q, k, v, valid, scores, part, B, S, S, 0,
+                                 H, Hkv, D, Dv, chunk, scale, softcap,
+                                 stream);
   if (err != cudaSuccess) return err;
+  const int n_split = (S + chunk - 1) / chunk;
   const int blocks = combine_blocks(B, S, H, Dv);
   const size_t smem = combine_smem(H, Dv);
   err = cudaFuncSetAttribute(decode_attn_combine<T>,
@@ -631,7 +762,46 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   decode_attn_combine<T><<<blocks, CT, smem, stream>>>(
       static_cast<const float*>(part), static_cast<const float*>(scores),
-      static_cast<T*>(o), static_cast<float*>(mass), B, S, H, Dv, grid.y);
+      static_cast<T*>(o), static_cast<float*>(mass), B, S, H, Dv, n_split);
+  return cudaGetLastError();
+}
+
+// a block's partial: the split kernel over the block, then the fold
+template <typename T>
+cudaError_t launch_partial(const void* q, const void* k, const void* v,
+                           const void* valid, void* out, void* scores,
+                           void* part, int B, int S, int S_row, int s0,
+                           int H, int Hkv, int D, int Dv, int chunk,
+                           float scale, float softcap, cudaStream_t stream) {
+  cudaError_t err = run_split<T>(q, k, v, valid, scores, part, B, S, S_row,
+                                 s0, H, Hkv, D, Dv, chunk, scale, softcap,
+                                 stream);
+  if (err != cudaSuccess) return err;
+  const long n = (long)B * H * (Dv + 2);
+  decode_attn_fold<<<(unsigned)((n + CT - 1) / CT), CT, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), n, Dv,
+      (S + chunk - 1) / chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_merge(const void* parts, const void* ml,
+                         const void* scores, void* o, void* mass, int N,
+                         int B, int Hn, int H, int S, int Dv,
+                         cudaStream_t stream) {
+  const int per_b = (Hn + o_heads(Dv) - 1) / o_heads(Dv);
+  const int blocks = B * per_b +
+                     (scores ? B * ((S + mass_slots(H) - 1) / mass_slots(H))
+                             : 0);
+  const size_t smem = merge_smem(H, Dv);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_attn_merge<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  decode_attn_merge<T><<<blocks, CT, smem, stream>>>(
+      static_cast<const float*>(parts), static_cast<const float*>(ml),
+      static_cast<const float*>(scores), static_cast<T*>(o),
+      static_cast<float*>(mass), N, B, Hn, H, S, Dv);
   return cudaGetLastError();
 }
 
@@ -674,5 +844,57 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, valid, o, mass, scores, part, B, S,
                                  H, Hkv, D, Dv, chunk, scale, softcap, s);
+  return cudaErrorInvalidValue;
+}
+
+// B3 over a block of a slot table: slots [s0, s0 + S) of rows of S_row
+// slots.  k, v [B, S, Hkv, D|Dv] hold the block, valid [B, S_row] the whole
+// rows (a row with no valid slot anywhere averages over all its slots, a
+// block with none in a row that has some weighs nothing).  out: f32
+// [B, H, Dv + 2], each head's (acc, m, l) over the block; scores: f32
+// [B, H, S], the block's raw masked scores; part: f32 scratch
+// [B, H, ceil(S / chunk), Dv + 2].  Two launches (the split kernel, the
+// fold).
+extern "C" int decode_attention_partial(const void* q, const void* k,
+                                        const void* v, const void* valid,
+                                        void* out, void* scores, void* part,
+                                        int dtype, int B, int S, int S_row,
+                                        int s0, int H, int Hkv, int D,
+                                        int Dv, int chunk, float scale,
+                                        float softcap, void* stream) {
+  if (bad_args(B, S, H, Hkv, D, Dv, chunk) || s0 < 0 || s0 + S > S_row)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_partial<float>(q, k, v, valid, out, scores, part, B, S,
+                                 S_row, s0, H, Hkv, D, Dv, chunk, scale,
+                                 softcap, s);
+  if (dtype == 1)
+    return launch_partial<__nv_bfloat16>(q, k, v, valid, out, scores, part,
+                                         B, S, S_row, s0, H, Hkv, D, Dv,
+                                         chunk, scale, softcap, s);
+  return cudaErrorInvalidValue;
+}
+
+// The merge of N blocks' partials: parts f32 [N, B, Hn, Dv + 2] (Hn heads'
+// (acc, m, l) from each block, in block order) -> o [B, Hn, Dv] (dtype: 0
+// float32, 1 bfloat16); with scores (f32 [B, H, S], one block's raw scores)
+// and ml (f32 [N, B, H, 2], every head's (m, l) from each block) also that
+// block's mass [B, S] f32; scores NULL: o alone.  One launch.
+extern "C" int decode_attention_merge(const void* parts, const void* ml,
+                                      const void* scores, void* o,
+                                      void* mass, int dtype, int N, int B,
+                                      int Hn, int H, int S, int Dv,
+                                      void* stream) {
+  if (N <= 0 || B <= 0 || Hn <= 0 || H <= 0 || S <= 0 || Dv <= 0 ||
+      Dv > MAXD || (scores && !(ml && mass)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_merge<float>(parts, ml, scores, o, mass, N, B, Hn, H, S,
+                               Dv, s);
+  if (dtype == 1)
+    return launch_merge<__nv_bfloat16>(parts, ml, scores, o, mass, N, B, Hn,
+                                       H, S, Dv, s);
   return cudaErrorInvalidValue;
 }

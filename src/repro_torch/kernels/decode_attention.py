@@ -21,9 +21,26 @@ order, so ``o`` and the mass are the same bit for bit from run to run.
 function in torch).  :func:`decode_attention` runs it on CPU tensors; on
 a CUDA tensor it launches the kernel or raises.
 
+A slot table split over ranks (``models.sharding.Local``: the slots of a
+KV cache whose heads do not divide ``model``, as the reference places
+it) runs B3 in two parts, the GSPMD program's cross-slot softmax made
+explicit.  :func:`decode_attention_partial` runs the split kernel over
+one rank's block of slots for every head, with the whole row's ``valid``
+(a row with no valid slot averages over all its slots; a block with none
+in a row that has some gives ``m = -1e30``, ``l = 0``), and folds the
+block's splits into one ``(acc, m, l)`` a head; it also leaves the
+block's raw scores.  :func:`decode_attention_merge` folds the blocks'
+partials of a head in block order into ``o`` and, given every head's
+``(m, l)`` from every block, writes the mass of one block's slots: the
+combine kernel with a rank axis in place of the split axis.  Each has a
+plain version beside it (``*_plain``), which the wrappers run on CPU
+tensors.
+
 ``LAUNCHES`` counts calls that launched the kernel (one call launches the
 split kernel and the combine after it): :func:`decode_attention` adds one
-where it launches, and nowhere else.
+where it launches, and nowhere else; likewise ``PARTIAL_LAUNCHES``
+(:func:`decode_attention_partial`: the split kernel and the fold) and
+``MERGE_LAUNCHES`` (:func:`decode_attention_merge`).
 
 The kernel has no backward, so :func:`decode_attention` raises, on every
 device, when autograd is recording and an input requires grad
@@ -40,10 +57,15 @@ import torch
 from . import _build
 from .flash_attention import NEG_INF, _softcap, no_grad_guard
 
-__all__ = ["decode_attention", "decode_attention_plain", "chunk_len",
-           "blocks_per_call", "LAUNCHES"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_partial", "decode_attention_partial_plain",
+           "decode_attention_merge", "decode_attention_merge_plain",
+           "pad_heads", "chunk_len", "blocks_per_call", "LAUNCHES",
+           "PARTIAL_LAUNCHES", "MERGE_LAUNCHES"]
 
 LAUNCHES = 0
+PARTIAL_LAUNCHES = 0
+MERGE_LAUNCHES = 0
 WARP_TILE = 8          # the kernel takes chunks that are a multiple of it
 CHUNK = 256            # slots per split block, where blocks are enough
 MIN_CHUNK = 32         # the chunk rule halves no further
@@ -62,6 +84,11 @@ def _lib():
     lib.decode_attention_fwd.restype = _I
     lib.decode_attention_grid.argtypes = [_I] * 7 + [_P]
     lib.decode_attention_grid.restype = _I
+    lib.decode_attention_partial.argtypes = [_P] * 7 + [_I] * 10 + \
+        [_F, _F, _P]
+    lib.decode_attention_partial.restype = _I
+    lib.decode_attention_merge.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+    lib.decode_attention_merge.restype = _I
     return lib
 
 
@@ -124,21 +151,9 @@ def decode_attention(q, k_cache, v_cache, valid, *, softcap=0.0,
                                       softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    B, H, D = q.shape
+    B, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    Dv = v_cache.shape[-1]
-    if k_cache.shape != (B, S, Hkv, D) or v_cache.shape[:3] != (B, S, Hkv) \
-            or valid.shape != (B, S) or H % Hkv or D > 256 or Dv > 256:
-        raise ValueError(
-            f"shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, v "
-            f"{tuple(v_cache.shape)}, valid {tuple(valid.shape)}")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or \
-            v_cache.dtype != q.dtype or valid.dtype != torch.bool:
-        raise ValueError(f"dtypes {q.dtype}, {k_cache.dtype}, "
-                         f"{v_cache.dtype}, {valid.dtype}")
-    for x in (k_cache, v_cache, valid):
-        if x.device != q.device:
-            raise ValueError(f"tensors on {q.device} and {x.device}")
+    _check(q, k_cache, v_cache, valid, S)
     return launch(q, k_cache, v_cache, valid, softcap,
                   scale if scale is not None else 1.0 / math.sqrt(D),
                   chunk_len(B, Hkv, S))
@@ -168,3 +183,168 @@ def launch(q, k_cache, v_cache, valid, softcap, scale, chunk):
     _build.check(status, "decode_attention_fwd")
     LAUNCHES += 1
     return o, mass
+
+
+def _check(q, k, v, valid, S):
+    """Raise unless q ``[B, H, D]``, k/v ``[B, Sk, Hkv, D|Dv]`` and valid
+    ``[B, S]`` are what the split kernel takes."""
+    B, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    if k.shape != (B, Sk, Hkv, D) or v.shape[:3] != (B, Sk, Hkv) \
+            or valid.shape != (B, S) or H % Hkv or D > 256 or Dv > 256:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, valid {tuple(valid.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype \
+            or valid.dtype != torch.bool:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}, "
+                         f"{valid.dtype}")
+    for x in (k, v, valid):
+        if x.device != q.device:
+            raise ValueError(f"tensors on {q.device} and {x.device}")
+
+
+def decode_attention_partial_plain(q, k_blk, v_blk, valid, s0, *,
+                                   softcap=0.0, scale=None):
+    """Plain version of :func:`decode_attention_partial`."""
+    B, H, D = q.shape
+    Sb, Hkv = k_blk.shape[1], k_blk.shape[2]
+    Dv = v_blk.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).reshape(B, Hkv, H // Hkv, D)
+    s = _softcap(torch.einsum("bhgd,bshd->bhgs", qf, k_blk.float()),
+                 softcap)
+    blk = valid[:, s0:s0 + Sb]
+    s = torch.where(blk[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1)
+    # every slot of a row with no valid slot; else the block's valid ones
+    take = blk | ~valid.any(dim=-1, keepdim=True)
+    p = torch.where(take[:, None, None], torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_blk.float())
+    part = torch.cat([acc.reshape(B, H, Dv), m.reshape(B, H, 1),
+                      p.sum(dim=-1).reshape(B, H, 1)], dim=-1)
+    return part, s.reshape(B, H, Sb)
+
+
+def decode_attention_partial(q, k_blk, v_blk, valid, s0, *, softcap=0.0,
+                             scale=None):
+    """B3 over one block of a slot table: q ``[B, H, D]``, k/v ``[B, Sb,
+    Hkv, D|Dv]`` the table's slots ``[s0, s0 + Sb)``, valid ``[B, S]`` bool
+    its whole rows.  Returns ``(part [B, H, Dv + 2] f32, scores [B, H, Sb]
+    f32)``: each head's ``(acc, m, l)`` over the block (``acc`` the
+    block's sum of ``e^(s - m) v``, ``m`` its largest valid score or
+    -1e30, ``l`` the sum of ``e^(s - m)``: 0 for a block with no valid
+    slot in a row that has some; a row with none weighs all its slots
+    alike), and the block's raw scores, masked slots -1e30."""
+    no_grad_guard("B3 (decode_attention_partial)", q, k_blk, v_blk)
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k_blk, v_blk, valid, s0,
+                                              softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, H, D = q.shape
+    Sb, Hkv, Dv = k_blk.shape[1], k_blk.shape[2], v_blk.shape[-1]
+    _check(q, k_blk, v_blk, valid, valid.shape[1])
+    if not 0 <= s0 <= valid.shape[1] - Sb:
+        raise ValueError(f"block [{s0}, {s0 + Sb}) outside rows of "
+                         f"{valid.shape[1]} slots")
+    global PARTIAL_LAUNCHES
+    q, k_blk, v_blk, valid = (x.contiguous()
+                              for x in (q, k_blk, v_blk, valid))
+    chunk = chunk_len(B, Hkv, Sb)
+    dev = q.device
+    out = torch.empty((B, H, Dv + 2), dtype=torch.float32, device=dev)
+    scores = torch.empty((B, H, Sb), dtype=torch.float32, device=dev)
+    part = torch.empty((B, H, _cdiv(Sb, chunk), Dv + 2),
+                       dtype=torch.float32, device=dev)
+    status = _lib().decode_attention_partial(
+        *(_P(x.data_ptr()) for x in (q, k_blk, v_blk, valid, out, scores,
+                                     part)),
+        _DTYPES[q.dtype], B, Sb, valid.shape[1], int(s0), H, Hkv, D, Dv,
+        chunk, scale if scale is not None else 1.0 / math.sqrt(D),
+        float(softcap or 0.0), _P(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(status, "decode_attention_partial")
+    PARTIAL_LAUNCHES += 1
+    return out, scores
+
+
+def _fold(m, l):
+    """Each head's ``(m, l)`` over the blocks (dim 0), in block order."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    return top, w, (w * l).sum(dim=0).clamp(min=1e-30)
+
+
+def decode_attention_merge_plain(parts, ml=None, scores=None, *,
+                                 dtype=torch.float32):
+    """Plain version of :func:`decode_attention_merge`."""
+    Dv = parts.shape[-1] - 2
+    _, w, l = _fold(parts[..., Dv], parts[..., Dv + 1])
+    o = ((w[..., None] * parts[..., :Dv]).sum(dim=0) / l[..., None])
+    if scores is None:
+        return o.to(dtype), None
+    top, _, lh = _fold(ml[..., 0], ml[..., 1])
+    p = torch.exp(scores - top[..., None]) / lh[..., None]
+    return o.to(dtype), p.mean(dim=1)
+
+
+def decode_attention_merge(parts, ml=None, scores=None, *,
+                           dtype=torch.float32):
+    """The merge of N blocks' partials (:func:`decode_attention_partial`
+    of each block of a slot table): parts ``[N, B, Hn, Dv + 2]`` f32, Hn
+    heads' partials from each block in block order -> o ``[B, Hn, Dv]``
+    in ``dtype``.  With ``scores`` (``[B, H, Sb]``, one block's raw
+    scores) and ``ml`` (``[N, B, H, 2]``, every head's ``(m, l)`` from each
+    block) also that block's mass ``[B, Sb]`` f32 (the mean over the H
+    heads of the softmax weights), else None."""
+    if parts.device.type == "cpu":
+        return decode_attention_merge_plain(parts, ml, scores, dtype=dtype)
+    if parts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {parts.device}")
+    N, B, Hn, P = parts.shape
+    Dv = P - 2
+    H = Sb = 1
+    if scores is not None:
+        H, Sb = scores.shape[1], scores.shape[2]
+        if ml is None or ml.shape != (N, B, H, 2) or \
+                scores.shape[0] != B or ml.dtype != torch.float32 or \
+                scores.dtype != torch.float32:
+            raise ValueError(f"ml {None if ml is None else tuple(ml.shape)}"
+                             f", scores {tuple(scores.shape)} for parts "
+                             f"{tuple(parts.shape)}")
+    if parts.dtype != torch.float32 or dtype not in _DTYPES or Dv > 256 \
+            or Dv <= 0:
+        raise ValueError(f"parts {parts.dtype}{tuple(parts.shape)}, "
+                         f"o {dtype}")
+    global MERGE_LAUNCHES
+    dev = parts.device
+    parts = parts.contiguous()
+    o = torch.empty((B, Hn, Dv), dtype=dtype, device=dev)
+    mass = None
+    ptrs = [parts.data_ptr(), 0, 0, o.data_ptr(), 0]
+    if scores is not None:
+        ml, scores = ml.contiguous(), scores.contiguous()
+        mass = torch.empty((B, Sb), dtype=torch.float32, device=dev)
+        ptrs[1], ptrs[2], ptrs[4] = (ml.data_ptr(), scores.data_ptr(),
+                                     mass.data_ptr())
+    status = _lib().decode_attention_merge(
+        *(_P(x) for x in ptrs), _DTYPES[dtype], N, B, Hn, H, Sb, Dv,
+        _P(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(status, "decode_attention_merge")
+    MERGE_LAUNCHES += 1
+    return o, mass
+
+
+def pad_heads(part, n):
+    """``part`` ``[B, H, Dv + 2]`` with heads appended up to a multiple of
+    ``n`` (so that the heads split over ``n`` ranks): each an empty
+    block's partial (``acc = 0``, ``m = -1e30``, ``l = 0``), whose ``o``
+    the merge makes 0."""
+    B, H, P = part.shape
+    extra = -H % n
+    if not extra:
+        return part
+    pad = torch.zeros((B, extra, P), dtype=part.dtype, device=part.device)
+    pad[..., P - 2] = NEG_INF
+    return torch.cat([part, pad], dim=1)

@@ -127,16 +127,22 @@ def port_credit_bytes(cfg, cell, n_chips: int, passes: float, *,
     where the reference's law assumes its own:
 
     * the heads split over ``model`` only where both the query and the KV
-      heads divide it; otherwise every model rank runs all of them;
-    * no slot split: a KV cache whose heads do not divide ``model``, and
-      MLA's latent, are whole on every model rank, which attends over
-      every slot of its rows;
+      heads divide it; otherwise every model rank runs all of them, over
+      its block of a KV cache's slots (a ``model``-th of them, where the
+      slots divide the axis, as the reference's; else every slot).  A
+      window's band of a slot-split cache is credited as the busiest rank
+      streams it, ``min(window, L / model)`` slots: the ranks step
+      together;
+    * MLA's latent is whole on every model rank, which attends over every
+      slot of its rows;
     * MLA's prefill runs B2 on the per-head K (``qk_nope + qk_rope``) and
       V (``v_head_dim``) materialized from the latent, so B2 streams
       those, not the latent.
 
     Where the placements agree (both head counts divide ``model``, or one
-    rank) it equals :func:`kernel_credit_bytes` but for MLA."""
+    rank) it equals :func:`kernel_credit_bytes` but for MLA.  B3's merge
+    of a slot-split cache's partials is not credited: it moves each
+    head's ``Dv + 2`` floats a rank, not the cache."""
     bsz = 16 * (2 if n_chips == 512 else 1) if bsz is None else bsz
     B, S = cell.global_batch, cell.seq_len
     if cell.kind == "decode" and cell.bounded_budget:
@@ -147,6 +153,10 @@ def port_credit_bytes(cfg, cell, n_chips: int, passes: float, *,
     Hkv_loc = cfg.n_kv_heads / tp_n if split else cfg.n_kv_heads
     hd = cfg.head_dim
     bq = min(cfg.attn_chunk_q, S)
+    # a KV cache's slots over 'model' where its heads do not split
+    # (models.sharding.Local.kv_block): B3 streams the rank's block, or
+    # as much of a window's band as one block can hold
+    slot_div = tp_n if cfg.n_kv_heads % tp_n and S % tp_n == 0 else 1
     total = 0.0
     for spec in cfg.layer_specs():
         if spec.kind == "mla" and cell.kind == "decode":
@@ -164,7 +174,7 @@ def port_credit_bytes(cfg, cell, n_chips: int, passes: float, *,
         else:
             continue
         if cell.kind == "decode":        # 2K + V + Q + O
-            kv = B_loc * min(S, window or S) * kv_heads * 2
+            kv = B_loc * min(S / slot_div, window or S) * kv_heads * 2
             total += kv * (2 * D + Dv) + B_loc * heads * (D + Dv) * 2
         else:
             span = min(S, (window or S) + bq)

@@ -69,7 +69,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["init_distributed", "make_production_mesh", "make_test_mesh",
            "shard_ctx", "check_mesh", "axis_size", "axis_index", "gather",
-           "cat", "seq_sum", "reduce_scatter", "launch_world"]
+           "cat", "seq_sum", "reduce_scatter", "all_to_all", "launch_world"]
 
 
 # the device init_distributed() placed this process's rank on
@@ -212,8 +212,9 @@ _CARRY = (torch.bool, torch.bfloat16)
 
 # Set by a counter (``launch.roofline``) to see every collective: called as
 # ``COLLECTIVE_HOOK(kind, x, ranks)`` with ``kind`` "all-gather", "sum" (a
-# :func:`seq_sum`'s all-gather) or "reduce-scatter", ``x`` the rank's
-# operand and ``ranks`` the group's global ranks.  ``None`` otherwise.
+# :func:`seq_sum`'s all-gather), "reduce-scatter" or "all-to-all", ``x``
+# the rank's operand and ``ranks`` the group's global ranks.  ``None``
+# otherwise.
 COLLECTIVE_HOOK = None
 
 
@@ -277,13 +278,35 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0):
     coordinate order: bit for bit the block of :func:`seq_sum`, but each
     rank sends each other rank only that rank's block (one
     ``all_to_all``)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ordered_sum(_exchange(x, mesh, axis, dim, "reduce-scatter")
+                        ).movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, dim: int = 0):
+    """Every rank's block of ``x`` along ``dim`` that belongs to this rank
+    (``dim`` split over ``axis`` in coordinate order), stacked in
+    coordinate order on a new leading dimension: ``[n, ...]`` with the
+    block's ``dim`` at ``dim + 1``.  Each rank sends each other rank only
+    that rank's block (one ``all_to_all``)."""
+    if axis_size(mesh, axis) == 1:
+        return x[None]
+    return torch.stack([p.movedim(0, dim) for p in
+                        _exchange(x, mesh, axis, dim, "all-to-all")])
+
+
+def _exchange(x, mesh, axis, dim, kind):
+    """The blocks of ``x`` along ``dim`` that every rank of ``axis`` sends
+    this one, in coordinate order, each with ``dim`` moved first."""
     group = mesh.get_group(axis)
     n = axis_size(mesh, axis)
-    if n == 1:
-        return x
     ranks, coords = _members(mesh, axis, group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {axis} ({n} ranks)")
     if COLLECTIVE_HOOK is not None:
-        COLLECTIVE_HOOK("reduce-scatter", x, ranks)
+        COLLECTIVE_HOOK(kind, x, ranks)
     dt = x.dtype
     pieces = x.chunk(n, dim)
     # the group's j-th member gets the piece at its coordinate
@@ -300,7 +323,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0):
     ordered = [None] * n
     for j, c in enumerate(coords):
         ordered[c] = got[j].view(shape)
-    return _ordered_sum(ordered).movedim(0, dim)
+    return ordered
 
 
 class _Cat(torch.autograd.Function):

@@ -19,12 +19,14 @@ and counts:
                         gather from one (``index``, ``embedding``) move
                         their window, not the buffer;
   * collective bytes -- every collective of ``launch.mesh`` (``gather``,
-                        ``seq_sum``'s gather, ``reduce_scatter``), seen
-                        through ``mesh.COLLECTIVE_HOOK``, with the
-                        reference's ring wire factors:
+                        ``seq_sum``'s gather, ``reduce_scatter``,
+                        ``all_to_all``), seen through
+                        ``mesh.COLLECTIVE_HOOK``, with the reference's
+                        ring wire factors:
                           all-gather      (N-1)/N * result
                           all-reduce    2*(N-1)/N * result
                           reduce-scatter  (N-1)/N * operand
+                          all-to-all      (N-1)/N * operand
                         N the group's size.  A group within one node of
                         ``NODE_RANKS`` ranks moves at the NVLink rate,
                         any other at the network's.
@@ -33,7 +35,9 @@ Every call counts: a Python loop over layers, chunks or microbatches runs
 its ops once each, so there are no trip counts to recover.  Ops issued
 inside the plain attention that a kernel replaces on the card
 (``kernels.flash_attention.attention_dense`` for B2,
-``kernels.decode_attention.decode_attention_plain`` for B3) and inside
+``kernels.decode_attention.decode_attention_plain`` for B3, and B3's
+``decode_attention_partial_plain`` and ``decode_attention_merge_plain``
+on a slot-split cache) and inside
 the attention of MLA's absorbed decode (``models.mla.absorbed_attention``,
 the reference's ``decode_attention_jnp`` scope, which it credits as a
 kernel too; not the projections around it) are tagged attention-inner, in the backward pass
@@ -57,7 +61,8 @@ from torch.utils._pytree import tree_leaves
 __all__ = ["HBM_BW", "PEAK_FLOPS", "F32_FLOPS", "SMS", "INT32_OPS_PER_S",
            "NVLINK_BW", "NET_BW", "NODE_RANKS", "StepCounter",
            "dominant_term", "policy_step_traffic_bytes",
-           "policy_step_targets", "bound", "flash_bound", "decode_bound"]
+           "policy_step_targets", "bound", "flash_bound", "decode_bound",
+           "partial_bound", "merge_bound"]
 
 HBM_BW = 3.35e12         # B/s, HBM3 (H100 SXM data sheet)
 PEAK_FLOPS = 989e12      # FLOP/s, dense bf16 tensor cores (data sheet)
@@ -97,11 +102,13 @@ def _nbytes(t) -> int:
 
 
 def _attention_codes():
-    from ..kernels.decode_attention import decode_attention_plain
+    from ..kernels import decode_attention as da
     from ..kernels.flash_attention import attention_dense
     from ..models.mla import absorbed_attention
-    return {f.__code__ for f in (attention_dense, decode_attention_plain,
-                                 absorbed_attention)}
+    return {f.__code__ for f in (
+        attention_dense, da.decode_attention_plain,
+        da.decode_attention_partial_plain, da.decode_attention_merge_plain,
+        absorbed_attention)}
 
 
 class StepCounter(TorchDispatchMode):
@@ -257,12 +264,14 @@ class StepCounter(TorchDispatchMode):
         ring = (n - 1) / max(n, 1)
         if kind == "reduce-scatter":
             wire, moved = ring * xb, xb + xb / n
+        elif kind == "all-to-all":
+            wire, moved = ring * xb, 2 * xb
         else:                              # an all-gather (a sum's too)
             wire, moved = ring * n * xb, xb + n * xb
         if kind == "sum":
             self.sum_bytes += wire
             self.sum_ring_bytes += 2 * ring * xb
-        key = "reduce-scatter" if kind == "reduce-scatter" else "all-gather"
+        key = "all-gather" if kind == "sum" else kind
         self.coll[key] += wire
         self.counts[key] += 1
         node = {r // NODE_RANKS for r in ranks}
@@ -411,4 +420,35 @@ def decode_bound(q, k, v, valid):
     bytes_ = (slots * row + q.numel() * q.element_size() + B * S
               + q.numel() // q.shape[2] * v.shape[3] * q.element_size()
               + 4 * B * S)
+    return bytes_ / HBM_BW * 1e3, "bytes"
+
+
+def partial_bound(q, k_blk, v_blk, valid, s0):
+    """Least time (ms) of B3's partial over one block of a slot table
+    (``kernels.decode_attention.decode_attention_partial``) on an H100: K
+    and V of the block's valid slots (every slot of a row with none in the
+    whole row), q and the whole rows' ``valid`` read once, each head's
+    ``(acc, m, l)`` and the block's raw scores written once, over the
+    memory rate."""
+    B, S = valid.shape
+    H, Sb, Dv = q.shape[1], k_blk.shape[1], v_blk.shape[3]
+    blk = valid[:, s0:s0 + Sb]
+    slots = int(torch.where(valid.any(1), blk.sum(1), Sb).sum())
+    row = (k_blk.shape[2] * k_blk.shape[3] + v_blk.shape[2] * Dv) * \
+        k_blk.element_size()
+    bytes_ = (slots * row + q.numel() * q.element_size() + B * S
+              + 4 * B * H * (Dv + 2) + 4 * B * H * Sb)
+    return bytes_ / HBM_BW * 1e3, "bytes"
+
+
+def merge_bound(parts, ml, scores, o_dtype):
+    """Least time (ms) of B3's merge (``decode_attention_merge``) on an
+    H100: the blocks' partials of its heads, every head's ``(m, l)`` and
+    one block's scores read once (the last two where the mass is asked
+    for), its heads' ``o`` and the block's mass written once, over the
+    memory rate."""
+    N, B, Hn, P = parts.shape
+    bytes_ = 4 * parts.numel() + B * Hn * (P - 2) * o_dtype.itemsize
+    if scores is not None:
+        bytes_ += 4 * (ml.numel() + scores.numel() + B * scores.shape[2])
     return bytes_ / HBM_BW * 1e3, "bytes"

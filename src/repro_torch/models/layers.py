@@ -21,11 +21,16 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention import (decode_attention,
-                                        decode_attention_plain)
+                                        decode_attention_merge,
+                                        decode_attention_merge_plain,
+                                        decode_attention_partial,
+                                        decode_attention_partial_plain,
+                                        decode_attention_plain, pad_heads)
 from ..kernels.flash_attention import attention_dense, flash_attention
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attend_prefill",
-           "attend_decode", "attn_qkv", "attn_apply", "mlp_apply"]
+           "attend_decode", "attend_decode_slots", "attn_qkv", "attn_apply",
+           "mlp_apply"]
 
 IMPLS = ("kernel", "plain")
 
@@ -76,6 +81,30 @@ def attend_decode(q, k_cache, v_cache, valid, *, softcap=0.0,
     _check_impl(impl)
     fn = decode_attention if impl == "kernel" else decode_attention_plain
     return fn(q, k_cache, v_cache, valid, softcap=softcap)
+
+
+def attend_decode_slots(q, k_blk, v_blk, valid, s0, loc, *, mass=True,
+                        softcap=0.0, impl="kernel"):
+    """One-token attention over a slot table whose slots split over the
+    model ranks (``loc``, a ``models.sharding.Local``): k/v ``[B, Sb,
+    Hkv, D|Dv]`` this rank's block ``[s0, s0 + Sb)``, valid ``[B, L]``
+    the whole rows, q ``[B, H, D]`` every head.  B3's partial over the
+    block for every head (kernel or plain), the partials exchanged by
+    heads and merged in rank order; with ``mass``, the rows' mass from
+    every head's ``(m, l)`` over the ranks, each rank's block of it
+    gathered in rank order (else None).  Returns ``(o [B, Hp / N, Dv]``
+    of this rank's block of the heads padded to a multiple of the ``N``
+    model ranks, ``mass [B, L]`` f32 or None, the same on every rank)."""
+    _check_impl(impl)
+    kernel = impl == "kernel"
+    partial = (decode_attention_partial if kernel
+               else decode_attention_partial_plain)
+    merge = decode_attention_merge if kernel else decode_attention_merge_plain
+    part, scores = partial(q, k_blk, v_blk, valid, s0, softcap=softcap)
+    parts, ml = loc.slot_exchange(pad_heads(part, loc.model_ranks),
+                                  part[..., -2:] if mass else None)
+    o, blk = merge(parts, ml, scores if mass else None, dtype=q.dtype)
+    return o, loc.slot_mass(blk)
 
 
 def attn_qkv(x, p, cfg, positions):

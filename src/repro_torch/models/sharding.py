@@ -24,7 +24,11 @@ path (:mod:`.model`'s ``forward``, ``serving.serve_step``) runs the same
 layer code on each rank's blocks, and a :class:`Local` view places the
 blocks and adds the collectives around it: the batch over ``(pod,)
 data``; attention and MLA heads over ``model`` (kernels B2 and B3 run on
-each rank's local heads, the output projection summed over ``model``); the
+each rank's local heads, the output projection summed over ``model``),
+or, where an attention layer's KV heads do not divide ``model``, the KV
+cache's slots over ``model`` (B3's partial on each rank's block of slots
+for every head, the partials merged in rank order: the cross-slot
+softmax that the reference's GSPMD program does implicitly); the
 MLP's width and the vocabulary over the axes their placement names (the
 activations gathered over the batch axes among them, the partial outputs
 summed, the logits concatenated); MoE experts over the axes of their
@@ -281,16 +285,17 @@ def serve_state_shardings(cfg, sctx: ShardCtx, state):
     DAC control rows ``[B, Bmax]`` slot-sharded over model.
 
     These are the reference's tables (``tests/test_torch_mesh.py`` holds
-    them equal).  The sharded serve path (:class:`Local`) places some
-    leaves otherwise:
+    them equal).  The sharded serve path (:class:`Local`) places an
+    attention layer's KV cache as they say (a cache whose heads do not
+    divide ``model`` split by slots, :meth:`Local.kv_block`), and some
+    other leaves otherwise:
 
     * DAC's control rows whole on every model rank (they are tiny, and
       DAC's control must agree across the model ranks that attend over
       one pool), the batch over the batch axes;
-    * a KV cache whose heads do not divide ``model``, and MLA's
-      ``latent``/``krope``, whole on every model rank (each model rank
-      attends over every slot with its heads), the batch over the batch
-      axes;
+    * MLA's ``latent``/``krope`` whole on every model rank (each model
+      rank attends over every slot with its heads), the batch over the
+      batch axes;
     * Mamba's ``conv``/``h`` and mLSTM's ``conv``/``C``/``n``/``m``: the
       channels (heads) over the layer's channel axes, those of its input
       projection's placement (serve mode: ``(model, data)``), and the
@@ -509,9 +514,12 @@ class Local:
     product, as the reference places it; otherwise every rank holds the
     whole batch.  Attention and MLA heads split over ``model`` when both
     the query and the KV heads divide it; otherwise every model rank runs
-    all heads.  The MLP's width, the vocabulary and MoE's experts and
-    their width split over the axes their placements name; a recurrent
-    layer's channels as :meth:`channels` says.
+    all heads, and an attention layer's KV cache splits by slots over
+    ``model`` where they divide it (:meth:`kv_block`; a decode step over
+    such a cache splits the query heads as :attr:`slot_heads` says).  The
+    MLP's width, the vocabulary and MoE's experts and their width split
+    over the axes their placements name; a recurrent layer's channels as
+    :meth:`channels` says.
 
     ``train``: the inputs are this rank's rows of the batch already (of
     ``B`` in all), and MoE routes each rank's rows, a sequence being a
@@ -619,14 +627,16 @@ class Local:
                          PARTS.get(k, 1))
                 for k, w in p.items()}
 
-    def _want(self, i):
-        """Layer ``i``'s compute layout (``_place``'s ``want``)."""
+    def _want(self, i, slots=False):
+        """Layer ``i``'s compute layout (``_place``'s ``want``); ``slots``:
+        a decode step's over a slot-split KV cache (:meth:`slot_heads`)."""
         spec, kind, H = self.specs["layers"][i], self.kinds[i], self.heads
         want = {}
         if kind == "attn":
-            want["attn"] = {"wq": ((), H, ()), "wk": ((), H, ()),
-                            "wv": ((), H, ()), "wo": (H, (), ()),
-                            "bq": (H, ()), "bk": (H, ()), "bv": (H, ())}
+            Q = self.slot_heads if slots else H
+            want["attn"] = {"wq": ((), Q, ()), "wk": ((), H, ()),
+                            "wv": ((), H, ()), "wo": (Q, (), ()),
+                            "bq": (Q, ()), "bk": (H, ()), "bv": (H, ())}
         elif kind == "mla":
             want["attn"] = {"w_q": ((), H, ()), "w_qb": ((), H, ()),
                             "w_kvb": ((), H, ()), "wo": (H, (), ())}
@@ -657,13 +667,15 @@ class Local:
                 want["moe"]["shared"] = _mlp_want(self.shared_axes(i))
         return want
 
-    def layer(self, i, p):
+    def layer(self, i, p, slots=False):
         """Layer ``i``'s weights ``p`` (this rank's blocks) as its compute
-        takes them: attention and MLA heads as :attr:`heads` says, a
+        takes them: attention and MLA heads as :attr:`heads` says (with
+        ``slots``, a decode step over a slot-split KV cache, the query
+        heads and the output projection's as :meth:`slot_heads` says), a
         recurrent layer's channels over :meth:`channels`' axes, MLP and
         expert widths and the experts over their placements' axes, every
         other dimension whole (an FSDP split gathered)."""
-        return self._place(p, self.specs["layers"][i], self._want(i))
+        return self._place(p, self.specs["layers"][i], self._want(i, slots))
 
     # -- around the layers --------------------------------------------------
     def embed(self, table, tokens):
@@ -820,6 +832,74 @@ class Local:
     def local_heads(self, n):
         """The number of heads of ``n`` this rank runs."""
         return n // self.tp_n
+
+    # -- a slot-split KV cache ------------------------------------------
+    @property
+    def model_ranks(self) -> int:
+        """The size of the ``model`` axis."""
+        return self.sctx.axis_size(self.sctx.tp)
+
+    def kv_block(self, L) -> Tuple[int, int]:
+        """(first slot, slots) of this rank's block of an attention layer's
+        KV cache of ``L`` slots: where the KV heads do not divide
+        ``model`` and ``L`` does, the reference's slot split (slots
+        ``[r L / N, (r + 1) L / N)``, ``r`` the rank's ``model``
+        coordinate, ``N`` the axis's size); otherwise ``(0, L)``, every
+        slot (the heads split, or the cache whole, as the reference's
+        ``tp_if``)."""
+        n = self.model_ranks
+        if n == 1 or _div(self.cfg.n_kv_heads, n) or L % n:
+            return 0, L
+        return _index(self.mesh, (self.sctx.tp,))[0] * (L // n), L // n
+
+    @property
+    def slot_heads(self) -> tuple:
+        """The axes a decode step over a slot-split KV cache splits its
+        query heads and output projection over: ``model`` where the query
+        heads divide it (``wq``, ``bq`` and ``wo`` used as the rank holds
+        them, no weight gathered), else none (all of them whole)."""
+        return (self.sctx.tp,) if _div(self.cfg.n_heads,
+                                       self.model_ranks) else ()
+
+    def slot_q(self, q):
+        """Every head's query ``[B, H, D]`` from this rank's (its block of
+        the heads where :attr:`slot_heads` splits them: one all-gather)."""
+        return self.cat(q, self.slot_heads, dim=1) if self.slot_heads else q
+
+    def slot_exchange(self, part, ml=None):
+        """The exchange of a slot-split attention's per-head partials:
+        ``part`` ``[B, Hp, ...]`` (this rank's block's, ``Hp`` a multiple
+        of the model ranks) -> this rank's heads' partials from every
+        model rank, ``[N, B, Hp / N, ...]`` in rank order (one
+        ``all_to_all``); with ``ml`` (``[B, H, 2]``, every head's
+        ``(m, l)`` of the rank's block) also every rank's, ``[N, B, H,
+        2]`` (one all-gather), else None."""
+        from ..launch.mesh import all_to_all, gather
+        tp = self.sctx.tp
+        parts = all_to_all(part, self.mesh, tp, dim=1)
+        if ml is not None:
+            ml = torch.stack(gather(ml.contiguous(), self.mesh, tp))
+        return parts, ml
+
+    def slot_mass(self, mass):
+        """The whole rows' mass ``[B, L]`` from each model rank's block of
+        it, in rank order (None stays None)."""
+        return None if mass is None else self.cat(mass, (self.sctx.tp,),
+                                                  dim=1)
+
+    def slot_out(self, o, wo):
+        """A slot-split attention's output ``[B, d]``, the same on every
+        model rank: this rank's merged heads ``o`` ``[B, Hp / N, Dv]``
+        (its block of the heads padded to a multiple of the ranks) times
+        their rows of ``wo`` (the rank's block where :attr:`slot_heads`
+        splits it, else cut from the whole, the padded heads dropped),
+        summed over ``model`` in rank order."""
+        if not self.slot_heads:
+            a = _index(self.mesh, (self.sctx.tp,))[0] * o.shape[1]
+            wo = wo[a:a + o.shape[1]]
+            o = o[:, :wo.shape[0]]
+        return self.sum(torch.einsum("bhk,hkd->bd", o, wo),
+                        (self.sctx.tp,))
 
 
 class Channels:

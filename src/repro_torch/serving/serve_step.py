@@ -28,11 +28,27 @@ logits.  B2 and B3 run on each rank's heads (attention and MLA), and
 DAC's hit signal sums their per-slot mass (MLA's absorbed decode's) over
 the model ranks in a fixed order, so that the control state is the same
 on every model rank.  The state's blocks (``sharding.Local``): the batch
-rows of the rank; an attention layer's KV heads; MLA's latent and
-``k_rope`` whole on each model rank; Mamba's and mLSTM's states over the
-layer's channel blocks (``Local.state_rows`` rows), sLSTM's whole; DAC's
-control rows whole on each model rank.  :func:`serve_state_shardings`
-(the reference's tables) says where these differ from the reference.
+rows of the rank; an attention layer's KV heads, or, where they do not
+divide ``model``, its KV cache's slots (``Local.kv_block``: a model-th
+of the ``L`` slots, as the reference places it, where ``L`` divides the
+axis; such a layer's state records ``L`` as ``"slots"``, a Python int);
+MLA's latent and ``k_rope`` whole on each model rank; Mamba's and
+mLSTM's states over the layer's channel blocks (``Local.state_rows``
+rows), sLSTM's whole; DAC's control rows whole on each model rank.
+:func:`serve_state_shardings` (the reference's tables) says where these
+differ from the reference.
+
+On a slot-split cache a decode step writes the token's K/V on the rank
+that holds its slot, gathers every head's query (each rank computes its
+block of the heads where they divide ``model``), and every rank runs B3's
+partial over its block for every head with the whole rows' ``valid``; the
+partials are exchanged by heads (one ``all_to_all``) and merged in rank
+order (``models.layers.attend_decode_slots``), and each rank applies its
+rows of the output projection to its heads, the parts summed over
+``model`` (``Local.slot_out``).  In the bounded regime
+each rank also writes its block's mass from every head's ``(m, l)``
+over the ranks, and the blocks are gathered, so that DAC sees the whole
+rows' mass on every rank.
 
 The state is ``{"pos": [B] int32, "layers": [one dict per layer]}``.
 Unlike the reference (whose arrays are immutable), :func:`decode_step`
@@ -47,7 +63,8 @@ import torch
 
 from ..models import mla, ssm
 from ..models.config import ArchConfig
-from ..models.layers import attend_decode, attn_qkv, rmsnorm
+from ..models.layers import (attend_decode, attend_decode_slots, attn_qkv,
+                             rmsnorm)
 from ..models.model import (embed_inputs, ffn, forward, layer_spec,
                             local_view, logits_head)
 from ..models.sharding import serve_state_shardings
@@ -65,14 +82,17 @@ CACHE_KEYS = {"attn": ("k", "v"), "mla": ("latent", "krope")}
 
 
 def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device,
-                 n_kv, ways=1):
+                 n_kv, ways=1, loc=None):
     if kind in RECURRENT:
         return RECURRENT[kind][0](cfg, B, cfg.dtype, device, ways)
     L = budget if budget else max_len
     kw = dict(dtype=cfg.dtype, device=device)
     if kind == "attn":
-        shape = (B, L, n_kv, cfg.head_dim)
+        block = L if loc is None else loc.kv_block(L)[1]
+        shape = (B, block, n_kv, cfg.head_dim)
         st = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        if block != L:
+            st["slots"] = L
     else:                                                  # mla
         st = {"latent": torch.zeros((B, L, cfg.kv_lora_rank), **kw),
               "krope": torch.zeros((B, L, cfg.qk_rope_head_dim), **kw)}
@@ -106,7 +126,7 @@ def init_serve_state(cfg: ArchConfig, B: int, max_len: int, budget: int = 0,
             rows, ways = loc.state_rows(layer), loc.channels(layer).ways
         layers.append(_layer_state(cfg, kind, rows, max_len, budget, k0,
                                    device, loc.local_heads(cfg.n_kv_heads),
-                                   ways))
+                                   ways, loc))
     return {"pos": torch.zeros(loc.batch, dtype=torch.int32, device=device),
             "layers": layers}
 
@@ -144,24 +164,34 @@ def _top_slot(mass, valid):
     return torch.where(valid.any(dim=-1), top, -1).to(torch.int32)
 
 
-def _insert(st, names, rows, pos, window):
+def _insert(st, names, rows, pos, window, s0=0):
     """Write one token's cache rows (``rows[i]`` ``[B, ...]`` into buffer
     ``names[i]``) at its slot, in place: DAC's insert (a miss event) picks
     the slot in the bounded regime, the position is the slot otherwise.
-    Returns (the new ctrl, None when unbounded; the valid slots
-    ``[B, L]``, the window applied)."""
+    A slot-split cache (``st["slots"]``: the rows' slots, the buffers
+    holding slots ``[s0, s0 + block)``) takes the row only where its block
+    holds the slot.  Returns (the new ctrl, None when unbounded; the valid
+    slots ``[B, L]`` of the whole rows, the window applied)."""
     if "ctrl" in st:                                       # bounded (DAC)
         ctrl, slot = kvc.insert(st["ctrl"], pos)
         valid = kvc.valid_slots(ctrl)
         slot_pos = ctrl["slot_pos"]
     else:                                                  # unbounded
         ctrl, slot = None, pos
-        slot_pos = torch.arange(st[names[0]].shape[1],
+        slot_pos = torch.arange(st.get("slots", st[names[0]].shape[1]),
                                 device=pos.device)[None]
         valid = slot_pos <= pos[:, None]
     bidx = torch.arange(pos.shape[0], device=pos.device)
+    block = st[names[0]].shape[1]
     for name, row in zip(names, rows):
-        st[name][bidx, slot.long()] = row
+        if "slots" not in st:
+            st[name][bidx, slot.long()] = row
+            continue
+        local = slot.long() - s0
+        mine = (local >= 0) & (local < block)
+        local = local.clamp(0, block - 1)
+        keep = mine.reshape((-1,) + (1,) * (row.dim() - 1))
+        st[name][bidx, local] = torch.where(keep, row, st[name][bidx, local])
     if window:
         valid = valid & (slot_pos > pos[:, None] - window)
     return ctrl, valid
@@ -179,8 +209,21 @@ def _decode_attn(h, p, st, cfg, spec, pos, impl, loc=None, **dac):
     """One attention layer's decode.  h ``[B, 1, d]`` (normed); writes the
     token's K/V into ``st`` in place; returns ``[B, d]``.  Under a mesh
     (``loc``) the rank's rows and heads, the mass summed over the model
-    ranks; the output is the rank's heads' part."""
+    ranks; the output is the rank's heads' part.  On a slot-split cache
+    (``st["slots"]``; ``p`` as ``Local.layer(slots=True)`` gives it) every
+    head over the rank's block of slots, merged over the model ranks
+    (:func:`~repro_torch.models.layers.attend_decode_slots`): the mass is
+    the whole rows', and the output the whole one (``Local.slot_out``)."""
     q, k, v = attn_qkv(h, p["attn"], cfg, pos[:, None])   # [B, 1, H|Hkv, hd]
+    if "slots" in st:
+        s0 = loc.kv_block(st["slots"])[0]
+        ctrl, valid = _insert(st, ("k", "v"), (k[:, 0], v[:, 0]), pos,
+                              spec.window, s0)
+        o, mass = attend_decode_slots(loc.slot_q(q[:, 0]), st["k"], st["v"],
+                                      valid, s0, loc, mass=ctrl is not None,
+                                      softcap=cfg.attn_softcap, impl=impl)
+        _hit(st, ctrl, mass, valid, **dac)
+        return loc.slot_out(o, p["attn"]["wo"])
     ctrl, valid = _insert(st, ("k", "v"), (k[:, 0], v[:, 0]), pos,
                           spec.window)
     o, mass = attend_decode(q[:, 0], st["k"], st["v"], valid,
@@ -230,7 +273,8 @@ def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
     for layer, (p, st) in enumerate(zip(params["layers"], state["layers"])):
         spec, ch = layer_spec(cfg, layer), None
         if loc is not None:
-            p, ch = loc.layer(layer, p), loc.channels(layer)
+            p = loc.layer(layer, p, slots="slots" in st)
+            ch = loc.channels(layer)
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         if spec.kind == "attn":
             out = _decode_attn(h, p, st, cfg, spec, pos, impl, loc, **dac)
@@ -295,6 +339,7 @@ def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
                              sctx=sctx)
     state = init_serve_state(cfg, B, max_len, budget, k0, device=dev,
                              sctx=sctx)
+    loc = None if sctx is None else local_view(cfg, sctx, B)
     B = state["pos"].shape[0]
     pooled = [st for st in state["layers"] if "ctrl" in st]
     if pooled:
@@ -309,12 +354,20 @@ def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
         if kind in RECURRENT:
             st.update(ca)                       # the state after the prompt
             continue
+        # a slot-split cache takes its block's columns [s0, s0 + block)
+        s0, block = 0, st[CACHE_KEYS[kind][0]].shape[1]
+        if "slots" in st:
+            s0 = loc.kv_block(st["slots"])[0]
         for name in CACHE_KEYS[kind]:
             if budget:
-                keep = hold.reshape(hold.shape + (1,) * (ca[name].dim() - 2))
-                st[name] = torch.where(keep, ca[name][bidx, src], st[name])
+                cols = slice(s0, s0 + block)
+                keep = hold[:, cols]
+                keep = keep.reshape(keep.shape + (1,) * (ca[name].dim() - 2))
+                st[name] = torch.where(keep, ca[name][bidx, src[:, cols]],
+                                       st[name])
             else:
-                st[name][:, :S] = ca[name]
+                n = min(max(S - s0, 0), block)
+                st[name][:, :n] = ca[name][:, s0:s0 + n]
         if budget:
             st["ctrl"] = ctrl
     state["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)

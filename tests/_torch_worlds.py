@@ -332,6 +332,7 @@ def serve_world(names, budgets, steps, refs, modes=("serve", "train"),
                     logits=(got[0], want[0]), init_equal=same,
                     ctrl_equal=_ctrl_equal(got[1], want[1]),
                     ctrl_steps=sum(len(c) for c in want[1]),
+                    evictions=_evictions(got[1]),
                     routing_equal=got[2].equals(want[2]),
                     routings=len(want[2].calls), state_err=state_err,
                     states=len(states))
@@ -394,6 +395,122 @@ def serve_world(names, budgets, steps, refs, modes=("serve", "train"),
     return out
 
 
+# the configurations whose smoke KV heads (2) do not split 4 ways
+SLOT_ARCHS = ("qwen1.5-110b", "mixtral-8x22b")
+
+
+def _wait_for(done, failed, timeout):
+    """Wait until the file ``done`` exists; raise if ``failed`` does, or
+    after ``timeout`` seconds."""
+    import os
+    import time
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(done):
+        if os.path.exists(failed) or time.monotonic() > deadline:
+            raise RuntimeError(f"no {done} (failed: "
+                               f"{os.path.exists(failed)})")
+        time.sleep(0.1)
+
+
+def _evictions(ctrl):
+    """The slots that decode steps wrote over a live entry: in each
+    bounded layer's control state after each step (``_serve``'s list),
+    those whose token position moved from one that was live (>= 0) to
+    another, counted over the steps after the first."""
+    return sum(int(((w["slot_pos"] >= 0) & (w["slot_pos"] != g["slot_pos"])
+                    ).sum())
+               for a, b in zip(ctrl, ctrl[1:]) for w, g in zip(a, b))
+
+
+def slot_world(names, budgets, steps, refs, whole, padded, ref_dir,
+               timeout):
+    """Sharded serving with slot-split KV caches on a (data 1, model 4)
+    mesh, serve mode, f32 smoke configs whose KV heads do not divide 4,
+    against the unsharded port:
+
+    * ``names``: prefill plus ``steps`` teacher-forced decode steps at
+      each budget (``max_len`` 64): logits, DAC's control state after
+      every step and the live slots the steps overwrote (a budget below
+      the prompt fills the pool), MoE routing, the KV bytes a rank holds
+      against the unsharded state's, and which layers split their slots;
+    * ``whole`` (``(name, budget, max_len)`` cases whose slot count does
+      not divide 4): the same, the caches whole on every rank;
+    * ``padded`` (``(name, query heads, budget)``): the same, at ``max_len``
+      64, with query heads that do not divide 4 (``wq`` and ``wo`` whole,
+      the heads padded for the exchange);
+    * ``refs`` (``{name: {budget: file}}``): the sharded decode from a
+      fresh state against the reference's own on the same mesh, once the
+      reference has written its files (``ref_dir``'s ``done``; it runs
+      beside the world), and the live slots the port's steps overwrote."""
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.models import init_params, params_from_reference
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.sharding import param_specs, shard_tree
+    from repro_torch.serving import decode_step, init_serve_state
+    from repro_torch.serving.serve_step import kv_bytes
+    mesh = M.make_test_mesh(data=1, model=4)
+    sctx = M.shard_ctx(mesh, mode="serve")
+
+    def f32(name, **kw):
+        return dataclasses.replace(SMOKE_ARCHS[name], param_dtype="float32",
+                                   **kw)
+
+    def run(name, budget, max_len, **kw):
+        cfg = f32(name, **kw)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        blocks = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", sctx=sctx)
+        rng = np.random.default_rng(1)
+        B, S = 4, 24
+        first = dict(tokens=torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                          (B, S))))
+        forced = [dict(token=torch.from_numpy(t))
+                  for t in rng.integers(0, cfg.vocab, (steps, B))]
+        want = _serve(params, cfg, first, forced, budget=budget,
+                      max_len=max_len)
+        got = _serve(blocks, cfg, first, forced, sctx, budget=budget,
+                     max_len=max_len)
+        return dict(logits=(got[0], want[0]),
+                    ctrl_equal=_ctrl_equal(got[1], want[1]),
+                    ctrl_steps=sum(len(c) for c in want[1]),
+                    evictions=_evictions(got[1]),
+                    routing_equal=got[2].equals(want[2]),
+                    kv_bytes=(kv_bytes(got[3]), kv_bytes(want[3])),
+                    split=["slots" in st for st in got[3]["layers"]])
+
+    out = {}
+    for name in names:
+        for budget in budgets:
+            out[(name, budget)] = run(name, budget, 64)
+    for name, budget, max_len in whole:
+        out[("whole", name, budget)] = run(name, budget, max_len)
+    for name, heads, budget in padded:
+        out[("padded", name, budget)] = run(name, budget, 64, n_heads=heads)
+    _wait_for(f"{ref_dir}/done", f"{ref_dir}/failed", timeout)
+    for name, files in refs.items():
+        cfg = f32(name)
+        for budget, ref_file in files.items():
+            ref = np.load(ref_file, allow_pickle=True)
+            rparams = params_from_reference(ref["params"].item(), cfg,
+                                            device="cpu")
+            blocks = shard_tree(rparams, param_specs(param_shapes(cfg), cfg,
+                                                     sctx), mesh)
+            state = init_serve_state(cfg, 4, max_len=64, budget=budget,
+                                     device="cpu", sctx=sctx)
+            logits, ctrl = [], []
+            for t in ref["tokens"]:
+                state, lg = decode_step(blocks, cfg, state,
+                                        token=torch.from_numpy(t), sctx=sctx)
+                logits.append(_np(lg))
+                ctrl.append([{k: _np(v) for k, v in st["ctrl"].items()}
+                             for st in state["layers"] if "ctrl" in st])
+            out[("reference", name, budget)] = dict(
+                logits=(np.stack(logits), ref["logits"]),
+                evictions=_evictions(ctrl))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -407,8 +524,10 @@ def _leaves(tree):
 
 # -- the dry run's collectives against a real world -------------------------
 
-DRYRUN_CASES = (("deepseek-7b", 0), ("deepseek-7b", 16),
-                ("mixtral-8x22b", 0))
+# (config, budget, mesh (data, model)); qwen's 2 KV heads split its
+# cache's slots 4 ways
+DRYRUN_CASES = (("deepseek-7b", 0, (2, 2)), ("deepseek-7b", 16, (2, 2)),
+                ("mixtral-8x22b", 0, (2, 2)), ("qwen1.5-110b", 16, (1, 4)))
 DRYRUN_B, DRYRUN_LEN = 8, 32
 
 
@@ -426,16 +545,15 @@ def decode_collectives(cfg, sctx, params, state, token):
 
 
 def collectives_world():
-    """Each ``DRYRUN_CASES`` smoke decode on a (data 2, model 2) mesh of
-    real tensors, serve mode: rank 0's collectives (every rank runs the
-    step)."""
+    """Each ``DRYRUN_CASES`` smoke decode on its mesh of real tensors,
+    serve mode: rank 0's collectives (every rank runs the step)."""
     from repro_torch.configs import SMOKE_ARCHS
     from repro_torch.models import init_params
     from repro_torch.serving import init_serve_state
-    mesh = M.make_test_mesh(2, 2)
-    sctx = dataclasses.replace(M.shard_ctx(mesh), mode="serve")
     out = []
-    for name, budget in DRYRUN_CASES:
+    for name, budget, shape in DRYRUN_CASES:
+        mesh = M.make_test_mesh(*shape)
+        sctx = dataclasses.replace(M.shard_ctx(mesh), mode="serve")
         cfg = SMOKE_ARCHS[name]
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu", sctx=sctx)

@@ -9,7 +9,12 @@ runs only on the card; here a torch mirror of that arithmetic, as the
 kernel's header documents it, is held against the port's plain version
 and the reference's ``layers.decode_attention`` within the tolerances of
 ``tests/test_torch_attention.py`` (2e-5 in f32, 3e-2 for a bf16 output),
-and the chunk rule is held to covering every slot once.
+and the chunk rule is held to covering every slot once.  The same mirror
+over one block of a slot table (the slots ``[s0, s0 + Sb)`` of a rank of
+a slot-split cache, with the whole rows' ``valid``), its splits folded
+into one partial a head, is held against
+``decode_attention_partial_plain``, and the blocks' partials merged
+against the whole table's plain B3.
 """
 import math
 
@@ -45,8 +50,48 @@ def split_mirror(q, k, v, valid, *, softcap=0.0, scale=None, chunk=None):
     per warp one online-softmax update a tile for every head; the warps'
     (m, l, acc) merged in warp order; then the splits folded in split order
     and the mass summed in head order."""
+    pm, pl, pacc, scores = split_parts(q, k, v, valid, softcap=softcap,
+                                       scale=scale, chunk=chunk)
+    B, H, S = scores.shape
+    Dv = v.shape[-1]
+    m = pm.max(-1).values
+    l, o = torch.zeros((B, H)), torch.zeros((B, H, Dv))
+    for i in range(pm.shape[-1]):
+        w = torch.exp(pm[..., i] - m)
+        l = l + w * pl[..., i]
+        o = o + w[..., None] * pacc[..., i, :]
+    l = l.clamp_min(1e-30)
+    mass = torch.zeros((B, S))
+    for h in range(H):
+        mass = mass + torch.exp(scores[:, h] - m[:, h, None]) / l[:, h, None]
+    return (o / l[..., None]).to(q.dtype), mass / H
+
+
+def block_mirror(q, k_blk, v_blk, valid, s0, *, softcap=0.0):
+    """The partial over one block (``decode_attention_partial``): the split
+    kernel over slots ``[s0, s0 + Sb)`` of rows whose whole ``valid`` it
+    reads, then its splits folded in split order, ``l`` not clamped."""
+    pm, pl, pacc, scores = split_parts(q, k_blk, v_blk, valid, s0=s0,
+                                       softcap=softcap)
+    m = pm.max(-1).values
+    l, acc = torch.zeros(m.shape), torch.zeros(pacc.shape[:2] + (
+        pacc.shape[-1],))
+    for i in range(pm.shape[-1]):
+        w = torch.exp(pm[..., i] - m)
+        l = l + w * pl[..., i]
+        acc = acc + w[..., None] * pacc[..., i, :]
+    return torch.cat([acc, m[..., None], l[..., None]], dim=-1), scores
+
+
+def split_parts(q, k, v, valid, *, s0=0, softcap=0.0, scale=None,
+                chunk=None):
+    """The split kernel's splits of k, v (slots ``[s0, s0 + S)`` of rows
+    whose whole ``valid`` is given): each split's ``(m, l, acc)`` and the
+    raw scores."""
     B, H, D = q.shape
     S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    row_anys = valid.any(-1)             # of the whole rows
+    valid = valid[:, s0:s0 + S]
     g = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     spans = (chunks(B, Hkv, S) if chunk is None else
@@ -60,7 +105,7 @@ def split_mirror(q, k, v, valid, *, softcap=0.0, scale=None, chunk=None):
     pacc = torch.zeros((B, H, n, Dv))
     scores = torch.empty((B, H, S))
     for b in range(B):
-        row_any = bool(valid[b].any())
+        row_any = bool(row_anys[b])
         for i, (lo, hi) in enumerate(spans):
             tiles = []
             for t0 in range(lo, hi, pd.WARP_TILE):
@@ -97,17 +142,7 @@ def split_mirror(q, k, v, valid, *, softcap=0.0, scale=None, chunk=None):
                 l = l + wgt * wl
                 acc = acc + wgt[:, None] * wacc
             pm[b, :, i], pl[b, :, i], pacc[b, :, i] = m, l, acc
-    m = pm.max(-1).values
-    l, o = torch.zeros((B, H)), torch.zeros((B, H, Dv))
-    for i in range(n):
-        w = torch.exp(pm[..., i] - m)
-        l = l + w * pl[..., i]
-        o = o + w[..., None] * pacc[..., i, :]
-    l = l.clamp_min(1e-30)
-    mass = torch.zeros((B, S))
-    for h in range(H):
-        mass = mass + torch.exp(scores[:, h] - m[:, h, None]) / l[:, h, None]
-    return (o / l[..., None]).to(q.dtype), mass / H
+    return pm, pl, pacc, scores
 
 
 def _pair(x, dtype):
@@ -209,3 +244,59 @@ def test_chunk_rule_at_the_timed_cases(B, Hkv, S, chunk):
     """The chunk the rule picks at ``decode_sweep.py``'s cases: 256 slots
     where they give 384 blocks or more, shorter where 256 gives 128."""
     assert pd.chunk_len(B, Hkv, S) == chunk
+
+
+# name: B, S, H, Hkv, D, Dv, softcap, valid pattern, blocks
+BLOCK_CASES = {
+    "empty-row": (2, 128, 4, 2, 16, 16, 0.0, "sparse+empty", 4),
+    "empty-blocks": (2, 256, 8, 2, 32, 32, 0.0, "window", 4),
+    "softcap": (2, 160, 8, 4, 32, 32, 30.0, "sparse", 2),
+    "short-prefix": (3, 256, 8, 2, 16, 8, 0.0, "short", 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_mirror_matches_plain_partial_and_merge(case):
+    """The split kernel over each rank's block of a slot table, with the
+    whole rows' ``valid`` (a row with no valid slot anywhere, blocks with
+    none in rows that have some, a window, a softcap): each block's folded
+    partial equals ``decode_attention_partial_plain``'s (its raw scores
+    too), a block without a valid slot in a row with some gives ``m =
+    -1e30``, ``l = 0``, ``acc = 0``, and the blocks merged in block order
+    give the whole table's plain B3 (f32)."""
+    B, S, H, Hkv, D, Dv, cap, pattern, n = BLOCK_CASES[case]
+    rng = np.random.default_rng(S + H + n)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
+    if pattern == "window":        # slots (pos - 40, pos], pos = 200 - 30b
+        pos = 200 - 30 * np.arange(B)[:, None]
+        ar = np.arange(S)[None]
+        valid = (ar <= pos) & (ar > pos - 40)
+    else:
+        valid = _valid(pattern, B, S, rng)
+    valid = torch.from_numpy(valid)
+    Sb = S // n
+    parts, scores = [], []
+    for r in range(n):
+        blk = slice(r * Sb, (r + 1) * Sb)
+        got = block_mirror(q, k[:, blk], v[:, blk], valid, r * Sb,
+                           softcap=cap)
+        want = pd.decode_attention_partial_plain(
+            q, k[:, blk], v[:, blk], valid, r * Sb, softcap=cap)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-5,
+                                       atol=2e-5)
+        empty = ~valid[:, blk].any(-1) & valid.any(-1)
+        assert (want[0][empty][..., Dv] == NEG).all()
+        assert (want[0][empty][..., Dv + 1] == 0).all()
+        assert (want[0][empty][..., :Dv] == 0).all()
+        parts.append(want[0])
+        scores.append(want[1])
+    parts = torch.stack(parts)
+    o, _ = pd.decode_attention_merge_plain(parts)
+    mass = torch.cat([pd.decode_attention_merge_plain(
+        parts, parts[..., Dv:], sc)[1] for sc in scores], dim=-1)
+    po, pm = pd.decode_attention_plain(q, k, v, valid, softcap=cap)
+    np.testing.assert_allclose(o.numpy(), po.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(mass.numpy(), pm.numpy(), rtol=1e-6,
+                               atol=1e-6)

@@ -146,17 +146,20 @@ def test_port_credit_equals_reference_where_placements_agree(arch, shape,
 def _decode_credit_from_state(cfg, cell, state, local):
     """:func:`~repro_torch.launch.dryrun.port_credit_bytes`' law for a
     decode step, read off the rank's own serve state and placement: each
-    attention layer's 2K + V over the slots it streams (a window's band)
-    plus Q and O of the heads the rank runs; each MLA layer's latent and
-    rotary cache twice plus Q and O."""
+    attention layer's 2K + V over the slots it streams (a window's band of
+    the rows' ``st["slots"]`` slots where the cache splits by slots, as
+    much of it as the rank's block holds: the busiest rank's) plus Q and O
+    of the heads the rank runs; each MLA layer's latent and rotary cache
+    twice plus Q and O."""
     H_loc = cfg.n_heads / local.tp_n
     total = 0.0
     for spec, st in zip(cfg.layer_specs(), state["layers"]):
         if spec.kind == "attn":
             k, v = st["k"], st["v"]
-            rows, L = k.shape[0], k.shape[1]
-            band = min(cell.bounded_budget or cell.seq_len,
-                       spec.window or L) / L
+            rows, held = k.shape[0], k.shape[1]
+            L = st.get("slots", held)
+            assert L == (cell.bounded_budget or cell.seq_len)
+            band = min(held, spec.window or L) / held
             total += (2 * D.tree_bytes(k) + D.tree_bytes(v)) * band
             total += rows * H_loc * 2 * cfg.head_dim * 2
         elif spec.kind == "mla":
@@ -174,9 +177,9 @@ def test_port_credit_reads_the_ranks_own_cache(arch, shape, mesh_kind):
     """A decode step's credit streams the cache that rank 0 holds under
     the port's placement (``serve_state_specs(sctx=)`` in a fake world)
     and runs the heads ``sharding.Local`` gives it: a KV cache whose heads
-    do not divide ``model`` (musicgen's 24, ROADMAP D12) and MLA's latent
-    are read whole on every model rank, not a ``model``-th of their
-    slots."""
+    do not divide ``model`` (musicgen's 24) is read over the rank's
+    ``model``-th of its slots, every head of it; MLA's latent whole on
+    every model rank."""
     from repro_torch.models.sharding import Local, param_specs
     cfg, cell = PC.ARCHS[arch], PC.SHAPES[shape]
     mshape, _ = MESHES[mesh_kind]
@@ -190,8 +193,12 @@ def test_port_credit_reads_the_ranks_own_cache(arch, shape, mesh_kind):
     want = _decode_credit_from_state(cfg, cell, state, local)
     got = D.port_credit_bytes(cfg, cell, math.prod(mshape), 1.0)
     assert got == pytest.approx(want, rel=1e-12)
-    if arch == "musicgen-medium":       # the whole cache, 24 heads a rank
-        assert got > 1.5 * kv_bytes(state)
+    if arch == "musicgen-medium":       # 24 heads over a 16th of the slots
+        # the rank's rows' whole cache, unsharded
+        whole = serve_state_specs(cfg, state["pos"].shape[0], cell.seq_len,
+                                  cell.bounded_budget, device="cpu")
+        assert kv_bytes(whole) == 16 * kv_bytes(state)
+        assert 1.5 * kv_bytes(state) < got < 1.5 * kv_bytes(whole) / 8
 
 
 # -- each rank's bytes -----------------------------------------------------------
@@ -234,22 +241,22 @@ def test_rank_param_bytes_equal_reference(arch, mesh_kind, mode):
     assert D.tree_bytes(params) == want
 
 
-def _state_factor(kind, name, leaf_shape, spec, sizes, B, heads):
+def _state_factor(kind, name, spec, sizes, B, heads):
     """The port's rank bytes of a serve-state leaf over the reference's
-    (ROADMAP C, "Edges"): DAC's control rows, MLA's latent cache, a KV
-    cache whose heads do not divide ``model`` and the sLSTM cell's state
-    are whole on every model rank, and so is an mLSTM's state where its
-    heads do not split over ``model`` (a rank holds whole heads), where
-    the reference splits them over ``model``; Mamba's channels split over ``(model, data)``, so with a
-    batch that does not split over the batch axes a rank holds a
-    ``data``-th of the reference's."""
+    (ROADMAP C, "Edges"): DAC's control rows, MLA's latent cache and the
+    sLSTM cell's state are whole on every model rank, and so is an
+    mLSTM's state where its heads do not split over ``model`` (a rank
+    holds whole heads), where the reference splits them over ``model``;
+    Mamba's channels split over ``(model, data)``, so with a batch that
+    does not split over the batch axes a rank holds a ``data``-th of the
+    reference's.  Every attention layer's KV cache is the reference's
+    block (its heads, or its slots, over ``model``)."""
     tp = sizes["model"]
     bsz = sizes["data"] * sizes.get("pod", 1)
     over_model = any(e == "model" or (isinstance(e, tuple) and "model" in e)
                      for e in spec)
     whole = (name in ("rank2slot", "free", "slot_pos", "latent", "krope")
-             or kind == "slstm" or (kind == "mlstm" and heads % tp)
-             or (name in ("k", "v") and leaf_shape[2] % tp))
+             or kind == "slstm" or (kind == "mlstm" and heads % tp))
     if whole:
         return tp if over_model else 1
     if kind == "mamba" and B % bsz:
@@ -281,9 +288,8 @@ def test_rank_serve_state_bytes_equal_reference(arch, shape, mesh_kind):
         kind = (rcfg.period[int(keys[1][1:])].kind if keys[0] == "layers"
                 else None)
         n = _ref_rank_bytes(leaf, sh.spec, sizes)
-        shp = leaf.shape[1:] if kind else leaf.shape
-        want[kind] += n * _state_factor(kind, keys[-1], shp, sh.spec, sizes,
-                                        B, rcfg.n_heads)
+        want[kind] += n * _state_factor(kind, keys[-1], sh.spec, sizes, B,
+                                        rcfg.n_heads)
     with D.fake_world(math.prod(mshape)):
         state = serve_state_specs(PC.ARCHS[arch], B, cell.seq_len,
                                   cell.bounded_budget,
@@ -448,7 +454,8 @@ def test_counter_tags_attention_in_the_backward_pass():
 
 
 def test_counter_in_a_fake_world_equals_a_gloo_world(tmp_path):
-    """Smoke decodes on a (data 2, model 2) mesh: the collectives the hook
+    """Smoke decodes on a (data 2, model 2) mesh, and one with a
+    slot-split cache on (data 1, model 4): the collectives the hook
     records on a fake world of 4 on fake tensors equal those on rank 0 of
     a real gloo world of 4 (``_torch_worlds.collectives_world``)."""
     real = M.launch_world(worlds.collectives_world, 4,
@@ -456,9 +463,9 @@ def test_counter_in_a_fake_world_equals_a_gloo_world(tmp_path):
                           timeout=WORLD_TIMEOUT)[0]
     fake = []
     with D.fake_world(4):
-        mesh = M.make_test_mesh(2, 2, device_type="cpu")
-        sctx = dataclasses.replace(M.shard_ctx(mesh), mode="serve")
-        for name, budget in worlds.DRYRUN_CASES:
+        for name, budget, shape in worlds.DRYRUN_CASES:
+            mesh = M.make_test_mesh(*shape, device_type="cpu")
+            sctx = dataclasses.replace(M.shard_ctx(mesh), mode="serve")
             cfg = PC.SMOKE_ARCHS[name]
             with FakeTensorMode() as mode:
                 params = init_params_shape(cfg, sctx, "cpu", mode)
@@ -472,6 +479,9 @@ def test_counter_in_a_fake_world_equals_a_gloo_world(tmp_path):
     assert fake == real
     assert all(r["collective_counts"]["all-gather"] > 0 for r in real)
     assert all(r["wire_by_link"].keys() == {"nvlink"} for r in real)
+    # the slot-split decode exchanges its partials by one all-to-all a layer
+    assert real[-1]["collective_counts"]["all-to-all"] == \
+        PC.SMOKE_ARCHS["qwen1.5-110b"].n_layers
 
 
 # -- the mesh on fake tensors ------------------------------------------------
