@@ -68,8 +68,9 @@ Phases, one JSON line each:
    B3 and the plain law (``ATTN_TOL``, the mass within ``MASS_REL`` of
    its row's scale, bf16 units), the same bits twice, and two planted
    masses that must fail that check (each head's mass normalised by the
-   next head's ``(m, l)``; a uniform one); a block's partial and a rank's merge timed at
-   qwen's shape with L2 cold beside their byte bounds;
+   next head's ``(m, l)``; a uniform one); a block's partial and a rank's
+   merge timed at each shape in bf16 with L2 cold beside their byte
+   bounds, blocks and launches a call, and the time of an empty launch;
 6. serve: deepseek-7b at full width and depth (30 layers, bf16, seeded
    random weights) through ``prefill`` + 64 greedy ``decode_step`` s on
    B = 8 prompts of 2048 tokens, unbounded and with the DAC-bounded pool
@@ -1022,10 +1023,13 @@ FLUSH_BYTES = 1 << 29        # 512 MB read between timed launches (L2: 50 MB)
 # by heads and merged in rank order by ``decode_attention_merge``), all n
 # blocks on this card, held against the unsharded B3 over the whole table:
 # name, B, S, H, Hkv, D, Dv, softcap, valid pattern, n.  qwen1.5-110b's
-# ``decode_32k`` rank (16 blocks of 2,048, the timed case);
+# ``decode_32k`` rank (16 blocks of 2,048, the case in the kernels line);
 # mixtral-8x22b's window over 16 blocks (most blocks without a valid slot
 # in rows that have some) with an empty row; musicgen-medium's 24 heads
-# (padded to 32 for the exchange by heads)
+# (padded to 32 for the exchange by heads); a rank's block of 16,384 slots
+# at D = Dv = 256 (chunks over 1,024 slots, taken in pieces); D 34 / Dv 18
+# with a softcap (the partial's CUDA-core body in bf16 too, rows copied
+# element by element)
 SLOT_SHAPES = [
     ("qwen1.5-110b decode_32k rank", 8, 32768, 64, 8, 128, 128, 0.0,
      "prefix", 16),
@@ -1033,6 +1037,8 @@ SLOT_SHAPES = [
      16),
     ("musicgen-medium heads", 8, 4096, 24, 24, 64, 64, 0.0, "sparse+empty",
      16),
+    ("long block d256", 1, 32768, 16, 8, 256, 256, 0.0, "sparse", 2),
+    ("d34-dv18", 2, 4096, 12, 2, 34, 18, 20.0, "sparse+empty", 4),
 ]
 SLOT_TIMED = "qwen1.5-110b decode_32k rank"
 
@@ -1185,13 +1191,13 @@ def b3_slot_cases(da, dev, flush):
     plain version in f32), the same bits from two runs of the law; two
     planted masses that the mass check must refuse (the merge kernel with
     each head's ``(m, l)`` taken from the next head, and a uniform mass
-    over the valid slots); ``SLOT_TIMED`` in bf16 timed: a block's
-    partial and a rank's merge with the L2 cache cold, beside their byte
-    bounds and plain versions, and the unsharded B3 over the whole table.
-    Returns (rows, errors, timed)."""
+    over the valid slots); every case in bf16 timed (``b3_slot_timing``),
+    beside what an empty launch reads under the same cold timing.
+    Returns (rows, errors, timed by case)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows, err, timed = [], {"partial": 0.0, "merge": 0.0}, {}
+    floor_ms = cold_ms(lambda: da.noop_launch(dev), flush, reps=20)
     for name, B, S, H, Hkv, D, Dv, cap, pattern, n in SLOT_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, H, D), dtype, dev)
@@ -1275,21 +1281,37 @@ def b3_slot_cases(da, dev, flush):
             err["partial"] = max(err["partial"], e_part)
             err["merge"] = max(err["merge"], e_merge)
             rows.append(row)
-            if name == SLOT_TIMED and dtype == torch.bfloat16:
-                timed = b3_slot_timing(da, q, k, v, valid, cap, n, flush)
+            if dtype == torch.bfloat16:
+                timed[name] = b3_slot_timing(da, q, k, v, valid, cap, n,
+                                             flush)
+                timed[name]["merge"]["launch_floor_ms"] = floor_ms
             del q, k, v, o, mass, parts, scores, padded, ml
             torch.cuda.empty_cache()
     return rows, err, timed
 
 
+def launches_per_call(fn):
+    """Kernels the card ran for one call of ``fn`` (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def b3_slot_timing(da, q, k, v, valid, cap, n, flush):
     """The sharded law at one case, bf16, L2 cold (``cold_ms``): block 0's
     partial (a rank's kernel time a step) and rank 0's merge with its
-    block's mass, each beside its byte bound and its plain version's ms;
-    the unsharded B3 over the whole table beside them."""
+    block's mass, each beside its byte bound, its plain version's ms, its
+    blocks (and the partial's body and split) and the kernels one call
+    runs; the unsharded B3 over the whole table beside them."""
     import torch
     from repro_torch.launch import roofline as R
-    S = k.shape[1]
+    B, S, Hkv = q.shape[0], k.shape[1], k.shape[2]
+    H, D, Dv = q.shape[1], q.shape[2], v.shape[3]
     Sb = S // n
     kb, vb = k[:, :Sb].contiguous(), v[:, :Sb].contiguous()
     part, sc = da.decode_attention_partial(q, kb, vb, valid, 0, softcap=cap)
@@ -1298,22 +1320,28 @@ def b3_slot_timing(da, q, k, v, valid, cap, n, flush):
     mine = parts[:, :, :parts.shape[2] // n].contiguous()
     p_ms, p_by = R.partial_bound(q, kb, vb, valid, 0)
     m_ms, m_by = R.merge_bound(mine, ml, sc, q.dtype)
-    out = {"shape": [q.shape[0], S, q.shape[1], k.shape[2], q.shape[2],
-                     v.shape[3]], "blocks": n, "block_slots": Sb,
-           "dtype": "bfloat16", "chunk": da.chunk_len(q.shape[0], k.shape[2],
-                                                     Sb)}
+
+    def partial():
+        return da.decode_attention_partial(q, kb, vb, valid, 0, softcap=cap)
+
+    def merge():
+        return da.decode_attention_merge(mine, ml, sc, dtype=q.dtype)
+    out = {"shape": [B, S, H, Hkv, D, Dv], "blocks": n, "block_slots": Sb,
+           "dtype": "bfloat16"}
     out["partial"] = {
-        "ms": cold_ms(lambda: da.decode_attention_partial(
-            q, kb, vb, valid, 0, softcap=cap), flush, reps=20),
+        "ms": cold_ms(partial, flush, reps=20),
         "plain_ms": cuda_ms(lambda: da.decode_attention_partial_plain(
             q, kb, vb, valid, 0, softcap=cap), reps=5),
-        "bound_ms": p_ms, "bound_by": p_by}
+        "bound_ms": p_ms, "bound_by": p_by,
+        **da.partial_plan(q.dtype, B, Sb, H, Hkv, D, Dv),
+        "launches_per_call": launches_per_call(partial)}
     out["merge"] = {
-        "ms": cold_ms(lambda: da.decode_attention_merge(
-            mine, ml, sc, dtype=q.dtype), flush, reps=20),
+        "ms": cold_ms(merge, flush, reps=20),
         "plain_ms": cuda_ms(lambda: da.decode_attention_merge_plain(
             mine, ml, sc, dtype=q.dtype), reps=5),
-        "bound_ms": m_ms, "bound_by": m_by}
+        "bound_ms": m_ms, "bound_by": m_by,
+        **da.merge_plan(n, B, mine.shape[2], H, Sb, Dv),
+        "launches_per_call": launches_per_call(merge)}
     for row in (out["partial"], out["merge"]):
         row["bound_share"] = row["bound_ms"] / row["ms"]
     u_ms, _ = R.decode_bound(q, k, v, valid)
@@ -5422,9 +5450,12 @@ def main() -> int:
     emit(phase_dryrun(dev, serve, res["c"]["step_args"]))
 
     flash, dec = attn["flash"], attn["deepseek-7b unbounded"]
-    part, merge = attn["slot"]["partial"], attn["slot"]["merge"]
+    part = attn["slot"][SLOT_TIMED]["partial"]
+    merge = attn["slot"][SLOT_TIMED]["merge"]
+    # every kernel was redesigned for the H100 after its port (B1, B2, B3
+    # once each; the partial and the merge as one launch each)
     print(json.dumps({"kernels": [{
-        "name": "policy_replay", "route": "cuda",
+        "name": "policy_replay", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/policy_step.cu",
         "replaces": "src/repro/kernels/policy_step.py:247",
         # the main path's replays, Table III's, the corpus sweeps', the
@@ -5438,7 +5469,7 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:107",
         # phase 6's prefills, phase 13's and phase 15's ranks'
@@ -5449,7 +5480,7 @@ def main() -> int:
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"]}, {
-        "name": "decode_attention", "route": "cuda",
+        "name": "decode_attention", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:136",
         # phase 6's decode steps, phase 13's and phase 15's ranks'
@@ -5461,7 +5492,7 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         # no single PyTorch call gives both o and the per-slot mass
         "library_ms": None}, {
-        "name": "decode_attention_partial", "route": "cuda",
+        "name": "decode_attention_partial", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:136",
         # phase 15's world (c): a step a layer on each of its ranks
@@ -5471,7 +5502,7 @@ def main() -> int:
         "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
         # no single PyTorch call gives a block's (acc, m, l) and scores
         "library_ms": None}, {
-        "name": "decode_attention_merge", "route": "cuda",
+        "name": "decode_attention_merge", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:161",
         "launches": mg_launches["b3_merge"],

@@ -24,23 +24,24 @@ a CUDA tensor it launches the kernel or raises.
 A slot table split over ranks (``models.sharding.Local``: the slots of a
 KV cache whose heads do not divide ``model``, as the reference places
 it) runs B3 in two parts, the GSPMD program's cross-slot softmax made
-explicit.  :func:`decode_attention_partial` runs the split kernel over
+explicit, each one launch.  :func:`decode_attention_partial` runs over
 one rank's block of slots for every head, with the whole row's ``valid``
 (a row with no valid slot averages over all its slots; a block with none
-in a row that has some gives ``m = -1e30``, ``l = 0``), and folds the
-block's splits into one ``(acc, m, l)`` a head; it also leaves the
-block's raw scores.  :func:`decode_attention_merge` folds the blocks'
-partials of a head in block order into ``o`` and, given every head's
-``(m, l)`` from every block, writes the mass of one block's slots: the
-combine kernel with a rank axis in place of the split axis.  Each has a
-plain version beside it (``*_plain``), which the wrappers run on CPU
-tensors.
+in a row that has some gives ``m = -1e30``, ``l = 0``): the block's
+splits (:func:`partial_split`) are one thread-block cluster, which folds
+them on chip into one ``(acc, m, l)`` a head; in bf16 its products run
+on the tensor cores.  It also leaves the block's raw scores.
+:func:`decode_attention_merge` folds the blocks' partials of a head in
+block order into ``o`` and, given every head's ``(m, l)`` from every
+block, writes the mass of one block's slots: the combine kernel with a
+rank axis in place of the split axis.  Each has a plain version beside
+it (``*_plain``), which the wrappers run on CPU tensors.
 
 ``LAUNCHES`` counts calls that launched the kernel (one call launches the
 split kernel and the combine after it): :func:`decode_attention` adds one
 where it launches, and nowhere else; likewise ``PARTIAL_LAUNCHES``
-(:func:`decode_attention_partial`: the split kernel and the fold) and
-``MERGE_LAUNCHES`` (:func:`decode_attention_merge`).
+(:func:`decode_attention_partial`) and ``MERGE_LAUNCHES``
+(:func:`decode_attention_merge`), one launch a call each.
 
 The kernel has no backward, so :func:`decode_attention` raises, on every
 device, when autograd is recording and an input requires grad
@@ -60,8 +61,9 @@ from .flash_attention import NEG_INF, _softcap, no_grad_guard
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_partial", "decode_attention_partial_plain",
            "decode_attention_merge", "decode_attention_merge_plain",
-           "pad_heads", "chunk_len", "blocks_per_call", "LAUNCHES",
-           "PARTIAL_LAUNCHES", "MERGE_LAUNCHES"]
+           "pad_heads", "chunk_len", "blocks_per_call", "partial_split",
+           "partial_plan", "merge_plan", "LAUNCHES", "PARTIAL_LAUNCHES",
+           "MERGE_LAUNCHES"]
 
 LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
@@ -70,6 +72,11 @@ WARP_TILE = 8          # the kernel takes chunks that are a multiple of it
 CHUNK = 256            # slots per split block, where blocks are enough
 MIN_CHUNK = 32         # the chunk rule halves no further
 MIN_BLOCKS = 2 * 132   # two blocks on each of an H100's 132 SMs
+PART_TILE = 16         # the partial kernel's chunks are a multiple of it
+PART_MIN_CHUNK = 64    # the partial's split rule halves no chunk this short
+PART_BLOCKS = 3 * 132  # one wave of partial blocks: three on each SM
+MAX_CLUSTER = 8        # splits of a partial's cluster, at most
+BODIES = {"rule": 0, "tensor": 1, "cuda": 2}   # the partial's bodies
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,11 +91,17 @@ def _lib():
     lib.decode_attention_fwd.restype = _I
     lib.decode_attention_grid.argtypes = [_I] * 7 + [_P]
     lib.decode_attention_grid.restype = _I
-    lib.decode_attention_partial.argtypes = [_P] * 7 + [_I] * 10 + \
+    lib.decode_attention_partial.argtypes = [_P] * 6 + [_I] * 12 + \
         [_F, _F, _P]
     lib.decode_attention_partial.restype = _I
+    lib.decode_attention_partial_plan.argtypes = [_I] * 10 + [_P]
+    lib.decode_attention_partial_plan.restype = _I
     lib.decode_attention_merge.argtypes = [_P] * 5 + [_I] * 7 + [_P]
     lib.decode_attention_merge.restype = _I
+    lib.decode_attention_merge_plan.argtypes = [_I] * 7 + [_P]
+    lib.decode_attention_merge_plan.restype = _I
+    lib.decode_attention_noop.argtypes = [_P]
+    lib.decode_attention_noop.restype = _I
     return lib
 
 
@@ -227,6 +240,40 @@ def decode_attention_partial_plain(q, k_blk, v_blk, valid, s0, *,
     return part, s.reshape(B, H, Sb)
 
 
+def partial_split(B, Hkv, Sb):
+    """The partial's split of a block of ``Sb`` slots: ``(n, chunk)``, n
+    blocks of ``chunk`` slots (a multiple of ``PART_TILE``) a (kv head,
+    batch row), one cluster.  n doubles from 1 (up to ``MAX_CLUSTER``)
+    while the chunk is longer than ``PART_MIN_CHUNK`` and twice the blocks
+    would still be one wave (``PART_BLOCKS``); then n is the fewest chunks
+    that cover the block.  A chunk longer than 1,024 slots is taken in
+    pieces by its block.  (On an H100, ``decode_sweep.py --slot --sweep``:
+    fewer splits left SMs idle, more than a wave made the stream slower;
+    PERF.md.)"""
+    n, c = 1, _cdiv(Sb, PART_TILE) * PART_TILE
+    while n < MAX_CLUSTER and c > PART_MIN_CHUNK \
+            and B * Hkv * 2 * n <= PART_BLOCKS:
+        n *= 2
+        c = _cdiv(_cdiv(Sb, n), PART_TILE) * PART_TILE
+    return _cdiv(Sb, c), c
+
+
+def partial_plan(dtype, B, Sb, H, Hkv, D, Dv, split=None, body="rule"):
+    """How the partial kernel runs a call (aligned inputs): ``{"blocks",
+    "body" ("tensor" or "cuda"), "threads", "smem_bytes", "splits",
+    "chunk"}``, at ``split`` (``(n, chunk)``; default
+    :func:`partial_split`'s) and ``body`` (a key of ``BODIES``), asked of
+    the built library."""
+    n, chunk = split or partial_split(B, Hkv, Sb)
+    out = (ctypes.c_int * 4)()
+    status = _lib().decode_attention_partial_plan(
+        _DTYPES[dtype], B, Sb, H, Hkv, D, Dv, n, chunk, BODIES[body], out)
+    _build.check(status, "decode_attention_partial_plan")
+    return {"blocks": out[0], "body": ("tensor", "cuda")[out[1] - 1],
+            "threads": out[2], "smem_bytes": out[3], "splits": n,
+            "chunk": chunk}
+
+
 def decode_attention_partial(q, k_blk, v_blk, valid, s0, *, softcap=0.0,
                              scale=None):
     """B3 over one block of a slot table: q ``[B, H, D]``, k/v ``[B, Sb,
@@ -243,27 +290,35 @@ def decode_attention_partial(q, k_blk, v_blk, valid, s0, *, softcap=0.0,
                                               softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    B, H, D = q.shape
-    Sb, Hkv, Dv = k_blk.shape[1], k_blk.shape[2], v_blk.shape[-1]
+    Sb = k_blk.shape[1]
     _check(q, k_blk, v_blk, valid, valid.shape[1])
     if not 0 <= s0 <= valid.shape[1] - Sb:
         raise ValueError(f"block [{s0}, {s0 + Sb}) outside rows of "
                          f"{valid.shape[1]} slots")
+    return launch_partial(q, k_blk, v_blk, valid, s0, softcap,
+                          scale if scale is not None else
+                          1.0 / math.sqrt(q.shape[2]))
+
+
+def launch_partial(q, k_blk, v_blk, valid, s0, softcap, scale, split=None,
+                   body="rule"):
+    """The partial kernel on CUDA tensors that
+    :func:`decode_attention_partial` has checked, at ``split`` and ``body``
+    as :func:`partial_plan` takes them."""
     global PARTIAL_LAUNCHES
     q, k_blk, v_blk, valid = (x.contiguous()
                               for x in (q, k_blk, v_blk, valid))
-    chunk = chunk_len(B, Hkv, Sb)
+    B, H, D = q.shape
+    Sb, Hkv, Dv = k_blk.shape[1], k_blk.shape[2], v_blk.shape[-1]
+    n, chunk = split or partial_split(B, Hkv, Sb)
     dev = q.device
     out = torch.empty((B, H, Dv + 2), dtype=torch.float32, device=dev)
     scores = torch.empty((B, H, Sb), dtype=torch.float32, device=dev)
-    part = torch.empty((B, H, _cdiv(Sb, chunk), Dv + 2),
-                       dtype=torch.float32, device=dev)
     status = _lib().decode_attention_partial(
-        *(_P(x.data_ptr()) for x in (q, k_blk, v_blk, valid, out, scores,
-                                     part)),
-        _DTYPES[q.dtype], B, Sb, valid.shape[1], int(s0), H, Hkv, D, Dv,
-        chunk, scale if scale is not None else 1.0 / math.sqrt(D),
-        float(softcap or 0.0), _P(torch.cuda.current_stream(dev).cuda_stream))
+        *(_P(x.data_ptr()) for x in (q, k_blk, v_blk, valid, out, scores)),
+        _DTYPES[q.dtype], B, Sb, valid.shape[1], int(s0), H, Hkv, D, Dv, n,
+        chunk, BODIES[body], scale, float(softcap or 0.0),
+        _P(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(status, "decode_attention_partial")
     PARTIAL_LAUNCHES += 1
     return out, scores
@@ -334,6 +389,24 @@ def decode_attention_merge(parts, ml=None, scores=None, *,
     _build.check(status, "decode_attention_merge")
     MERGE_LAUNCHES += 1
     return o, mass
+
+
+def merge_plan(N, B, Hn, H, Sb, Dv, mass=True):
+    """How the merge kernel runs a call: ``{"blocks", "smem_bytes"}``,
+    asked of the built library."""
+    out = (ctypes.c_int * 2)()
+    status = _lib().decode_attention_merge_plan(N, B, Hn, H, Sb, Dv,
+                                                int(mass), out)
+    _build.check(status, "decode_attention_merge_plan")
+    return {"blocks": out[0], "smem_bytes": out[1]}
+
+
+def noop_launch(device):
+    """One launch of an empty kernel from the built library on
+    ``device``'s current stream: the floor under a launch's time."""
+    _build.check(_lib().decode_attention_noop(
+        _P(torch.cuda.current_stream(device).cuda_stream)),
+        "decode_attention_noop")
 
 
 def pad_heads(part, n):

@@ -9,12 +9,16 @@ runs only on the card; here a torch mirror of that arithmetic, as the
 kernel's header documents it, is held against the port's plain version
 and the reference's ``layers.decode_attention`` within the tolerances of
 ``tests/test_torch_attention.py`` (2e-5 in f32, 3e-2 for a bf16 output),
-and the chunk rule is held to covering every slot once.  The same mirror
-over one block of a slot table (the slots ``[s0, s0 + Sb)`` of a rank of
-a slot-split cache, with the whole rows' ``valid``), its splits folded
-into one partial a head, is held against
-``decode_attention_partial_plain``, and the blocks' partials merged
-against the whole table's plain B3.
+and the chunk rule is held to covering every slot once.  The partial
+kernel over one block of a slot table (the slots ``[s0, s0 + Sb)`` of a
+rank of a slot-split cache, with the whole rows' ``valid``) has its own
+mirror: the splits of :func:`pd.partial_split` (one cluster), pieces,
+16-slot tiles dealt to four warps, the scale applied to the f32 product,
+in bf16 P entering P V as bf16 hi + lo, the warps merged in warp order
+and the splits folded in split order; it is held against
+``decode_attention_partial_plain`` within 2e-5 (the bound the card's
+check holds the kernel to), P rounded to bf16 alone is shown to exceed
+that, and the blocks' partials merged against the whole table's plain B3.
 """
 import math
 
@@ -67,31 +71,99 @@ def split_mirror(q, k, v, valid, *, softcap=0.0, scale=None, chunk=None):
     return (o / l[..., None]).to(q.dtype), mass / H
 
 
-def block_mirror(q, k_blk, v_blk, valid, s0, *, softcap=0.0):
-    """The partial over one block (``decode_attention_partial``): the split
-    kernel over slots ``[s0, s0 + Sb)`` of rows whose whole ``valid`` it
-    reads, then its splits folded in split order, ``l`` not clamped."""
-    pm, pl, pacc, scores = split_parts(q, k_blk, v_blk, valid, s0=s0,
-                                       softcap=softcap)
-    m = pm.max(-1).values
-    l, acc = torch.zeros(m.shape), torch.zeros(pacc.shape[:2] + (
-        pacc.shape[-1],))
-    for i in range(pm.shape[-1]):
-        w = torch.exp(pm[..., i] - m)
-        l = l + w * pl[..., i]
-        acc = acc + w[..., None] * pacc[..., i, :]
-    return torch.cat([acc, m[..., None], l[..., None]], dim=-1), scores
+PART_TILE, PIECE = 16, 1024    # the partial kernel's tiles and pieces
 
 
-def split_parts(q, k, v, valid, *, s0=0, softcap=0.0, scale=None,
-                chunk=None):
-    """The split kernel's splits of k, v (slots ``[s0, s0 + S)`` of rows
-    whose whole ``valid`` is given): each split's ``(m, l, acc)`` and the
-    raw scores."""
+def p_times_v(p, v, hi_lo):
+    """P V as the partial's bodies form it: the tensor-core body's P as
+    bf16 hi + lo (two products, each summed in f32), the CUDA-core body's
+    f32 P (``hi_lo`` None); ``hi_lo`` False: P rounded to bf16 alone."""
+    if hi_lo is None:
+        return p @ v
+    hi = p.bfloat16().float()
+    if not hi_lo:
+        return hi @ v
+    return hi @ v + (p - hi).bfloat16().float() @ v
+
+
+def block_mirror(q, k_blk, v_blk, valid, s0, *, softcap=0.0, split=None,
+                 piece=PIECE, hi_lo=True):
+    """The partial kernel over one block (``decode_attention_partial``):
+    slots ``[s0, s0 + Sb)`` of rows whose whole ``valid`` it reads, in
+    ``split`` (default ``pd.partial_split``'s) chunks of pieces of
+    ``piece`` slots; per piece the 16-slot tiles that hold a slot to fetch
+    (the others' scores -1e30) dealt in order to ``WARPS`` warps, each with
+    one online-softmax update a tile (scale times the f32 product), P V by
+    :func:`p_times_v` (bf16 rows of multiples of 16: the tensor-core body,
+    ``hi_lo``; else f32 P); the warps merged in warp order, the splits
+    folded in split order, ``l`` not clamped."""
+    B, H, D = q.shape
+    Sb, Hkv, Dv = k_blk.shape[1], k_blk.shape[2], v_blk.shape[-1]
+    g, scale = H // Hkv, 1.0 / math.sqrt(D)
+    tensor = q.dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
+    hi_lo = hi_lo if tensor else None
+    n, chunk = split or pd.partial_split(B, Hkv, Sb)
+    row_anys, ok_blk = valid.any(-1), valid[:, s0:s0 + Sb]
+    qf = q.float().reshape(B, Hkv, g, D)
+    kf, vf = k_blk.float(), v_blk.float()
+    part = torch.zeros((B, H, Dv + 2))
+    scores = torch.empty((B, H, Sb))
+    for b, hk in np.ndindex(B, Hkv):
+        heads = slice(hk * g, (hk + 1) * g)
+        splits = []
+        for lo in range(0, n * chunk, chunk):
+            warps = [(torch.full((g,), NEG), torch.zeros(g),
+                      torch.zeros((g, Dv))) for _ in range(WARPS)]
+            for p0 in range(lo, min(lo + chunk, Sb), piece):
+                p1 = min(p0 + piece, lo + chunk, Sb)
+                tiles = []
+                for t0 in range(p0, p1, PART_TILE):
+                    t1 = min(t0 + PART_TILE, p1)
+                    if row_anys[b] and not bool(ok_blk[b, t0:t1].any()):
+                        scores[b, heads, t0:t1] = NEG
+                    else:
+                        tiles.append((t0, t1))
+                for i, (t0, t1) in enumerate(tiles):
+                    m, l, acc = warps[i % WARPS]
+                    ok = ok_blk[b, t0:t1]
+                    fetch = ok if row_anys[b] else torch.ones_like(ok)
+                    kt = torch.where(fetch[:, None], kf[b, t0:t1, hk], 0.0)
+                    vt = torch.where(fetch[:, None], vf[b, t0:t1, hk], 0.0)
+                    x = (qf[b, hk] @ kt.T) * scale
+                    if softcap:
+                        x = torch.tanh(x / softcap) * softcap
+                    x = torch.where(ok[None], x, NEG)
+                    scores[b, heads, t0:t1] = x
+                    m_new = torch.maximum(m, x.max(-1).values)
+                    a = torch.exp(m - m_new)
+                    p = torch.exp(x - m_new[:, None])
+                    warps[i % WARPS] = (m_new, l * a + p.sum(-1),
+                                        acc * a[:, None] + p_times_v(
+                                            p, vt, hi_lo))
+            splits.append(fold(warps))
+        m, l, acc = fold(splits)
+        part[b, heads] = torch.cat([acc, m[:, None], l[:, None]], dim=-1)
+    return part, scores
+
+
+def fold(partials):
+    """``[(m, l, acc), ...]`` folded in order into one ``(m, l, acc)``,
+    ``l`` not clamped."""
+    m = torch.stack([pm for pm, _, _ in partials]).max(0).values
+    l, acc = torch.zeros_like(m), torch.zeros_like(partials[0][2])
+    for pm, pl, pacc in partials:
+        w = torch.exp(pm - m)
+        l = l + w * pl
+        acc = acc + w[:, None] * pacc
+    return m, l, acc
+
+
+def split_parts(q, k, v, valid, *, softcap=0.0, scale=None, chunk=None):
+    """The split kernel's splits of k, v: each split's ``(m, l, acc)`` and
+    the raw scores."""
     B, H, D = q.shape
     S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    row_anys = valid.any(-1)             # of the whole rows
-    valid = valid[:, s0:s0 + S]
+    row_anys = valid.any(-1)
     g = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     spans = (chunks(B, Hkv, S) if chunk is None else
@@ -246,27 +318,37 @@ def test_chunk_rule_at_the_timed_cases(B, Hkv, S, chunk):
     assert pd.chunk_len(B, Hkv, S) == chunk
 
 
-# name: B, S, H, Hkv, D, Dv, softcap, valid pattern, blocks
+# name: B, S, H, Hkv, D, Dv, softcap, valid pattern, blocks, dtype, split
+# (None: pd.partial_split's), piece
 BLOCK_CASES = {
-    "empty-row": (2, 128, 4, 2, 16, 16, 0.0, "sparse+empty", 4),
-    "empty-blocks": (2, 256, 8, 2, 32, 32, 0.0, "window", 4),
-    "softcap": (2, 160, 8, 4, 32, 32, 30.0, "sparse", 2),
-    "short-prefix": (3, 256, 8, 2, 16, 8, 0.0, "short", 4),
+    "empty-row": (2, 128, 4, 2, 16, 16, 0.0, "sparse+empty", 4, torch.float32,
+                  None, PIECE),
+    "empty-blocks": (2, 256, 8, 2, 32, 32, 0.0, "window", 4, torch.float32,
+                     None, PIECE),
+    "softcap": (2, 160, 8, 4, 32, 32, 30.0, "sparse", 2, torch.float32, None,
+                PIECE),
+    "short-prefix": (3, 256, 8, 2, 16, 8, 0.0, "short", 4, torch.float32,
+                     None, PIECE),
+    # bf16 on the tensor-core body: g = 8, a cluster of 4 splits in pieces
+    # of 32 slots; g = 1 (musicgen's) with a softcap; an empty row
+    "bf16-g8-pieces": (2, 512, 16, 2, 32, 32, 0.0, "sparse", 2,
+                       torch.bfloat16, (4, 64), 32),
+    "bf16-g1-softcap": (2, 256, 4, 4, 16, 32, 30.0, "sparse+empty", 2,
+                        torch.bfloat16, None, PIECE),
+    "bf16-window": (2, 512, 8, 2, 16, 16, 0.0, "window", 4, torch.bfloat16,
+                    (2, 64), PIECE),
+    # bf16 rows that are not multiples of 16 elements: the CUDA-core body
+    "bf16-d24": (2, 128, 6, 3, 24, 8, 0.0, "sparse", 2, torch.bfloat16,
+                 None, PIECE),
 }
 
 
-@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
-def test_block_mirror_matches_plain_partial_and_merge(case):
-    """The split kernel over each rank's block of a slot table, with the
-    whole rows' ``valid`` (a row with no valid slot anywhere, blocks with
-    none in rows that have some, a window, a softcap): each block's folded
-    partial equals ``decode_attention_partial_plain``'s (its raw scores
-    too), a block without a valid slot in a row with some gives ``m =
-    -1e30``, ``l = 0``, ``acc = 0``, and the blocks merged in block order
-    give the whole table's plain B3 (f32)."""
-    B, S, H, Hkv, D, Dv, cap, pattern, n = BLOCK_CASES[case]
+def block_inputs(case):
+    """The case's q, k, v (``dtype``) and whole rows' ``valid``."""
+    B, S, H, Hkv, D, Dv, cap, pattern, n, dtype = BLOCK_CASES[case][:10]
     rng = np.random.default_rng(S + H + n)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(dtype)
                for s in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv)))
     if pattern == "window":        # slots (pos - 40, pos], pos = 200 - 30b
         pos = 200 - 30 * np.arange(B)[:, None]
@@ -274,29 +356,106 @@ def test_block_mirror_matches_plain_partial_and_merge(case):
         valid = (ar <= pos) & (ar > pos - 40)
     else:
         valid = _valid(pattern, B, S, rng)
-    valid = torch.from_numpy(valid)
+    return q, k, v, torch.from_numpy(valid)
+
+
+def part_err(got, want):
+    """Largest difference of two partials ``[B, H, Dv + 2]`` in the terms
+    the card's check uses (``chip_smoke.part_err``): the block's output
+    ``acc / l``, ``m``, and ``l`` relative to max(l, 1)."""
+    Dv = got.shape[-1] - 2
+    lg, lw = got[..., Dv + 1], want[..., Dv + 1]
+    return max(
+        (got[..., :Dv] / lg.clamp(min=1e-30)[..., None]
+         - want[..., :Dv] / lw.clamp(min=1e-30)[..., None]).abs().max(),
+        (got[..., Dv] - want[..., Dv]).abs().max(),
+        ((lg - lw) / lw.clamp(min=1.0)).abs().max()).item()
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_mirror_matches_plain_partial_and_merge(case):
+    """The partial kernel over each rank's block of a slot table, with the
+    whole rows' ``valid`` (a row with no valid slot anywhere, blocks with
+    none in rows that have some, a window, a softcap; bf16 with P as hi +
+    lo): each block's partial equals ``decode_attention_partial_plain``'s
+    within 2e-5 (its raw scores too), a block without a valid slot in a
+    row with some gives ``m = -1e30``, ``l = 0``, ``acc = 0``, and the
+    blocks merged in block order give the whole table's plain B3."""
+    B, S, H, Hkv, D, Dv, cap, _, n, _, split, piece = BLOCK_CASES[case]
+    q, k, v, valid = block_inputs(case)
     Sb = S // n
     parts, scores = [], []
     for r in range(n):
         blk = slice(r * Sb, (r + 1) * Sb)
         got = block_mirror(q, k[:, blk], v[:, blk], valid, r * Sb,
-                           softcap=cap)
+                           softcap=cap, split=split, piece=piece)
         want = pd.decode_attention_partial_plain(
             q, k[:, blk], v[:, blk], valid, r * Sb, softcap=cap)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-5,
-                                       atol=2e-5)
+        assert part_err(got[0], want[0]) <= 2e-5
+        np.testing.assert_allclose(got[1].numpy(), want[1].numpy(),
+                                   rtol=2e-5, atol=2e-5)
+        if q.dtype == torch.float32:
+            np.testing.assert_allclose(got[0].numpy(), want[0].numpy(),
+                                       rtol=2e-5, atol=2e-5)
         empty = ~valid[:, blk].any(-1) & valid.any(-1)
-        assert (want[0][empty][..., Dv] == NEG).all()
-        assert (want[0][empty][..., Dv + 1] == 0).all()
-        assert (want[0][empty][..., :Dv] == 0).all()
+        for w in (got[0], want[0]):
+            assert (w[empty][..., Dv] == NEG).all()
+            assert (w[empty][..., Dv + 1] == 0).all()
+            assert (w[empty][..., :Dv] == 0).all()
         parts.append(want[0])
         scores.append(want[1])
     parts = torch.stack(parts)
     o, _ = pd.decode_attention_merge_plain(parts)
     mass = torch.cat([pd.decode_attention_merge_plain(
         parts, parts[..., Dv:], sc)[1] for sc in scores], dim=-1)
-    po, pm = pd.decode_attention_plain(q, k, v, valid, softcap=cap)
+    po, pm = pd.decode_attention_plain(q.float(), k.float(), v.float(),
+                                       valid, softcap=cap)
     np.testing.assert_allclose(o.numpy(), po.numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(mass.numpy(), pm.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_bf16_p_alone_fails_the_partial_check():
+    """P rounded to bf16 alone before P V (one product, not hi + lo) errs
+    by more than the 2e-5 the partial is held to, where hi + lo does not:
+    the check can tell the two apart."""
+    q, k, v, valid = block_inputs("bf16-g8-pieces")
+    want = pd.decode_attention_partial_plain(q, k[:, :256], v[:, :256],
+                                             valid, 0)[0]
+    kw = dict(split=(4, 64), piece=32)
+    assert part_err(block_mirror(q, k[:, :256], v[:, :256], valid, 0,
+                                 **kw)[0], want) <= 2e-5
+    assert part_err(block_mirror(q, k[:, :256], v[:, :256], valid, 0,
+                                 hi_lo=False, **kw)[0], want) > 2e-5
+
+
+@pytest.mark.parametrize("B,Hkv,Sb", [
+    (8, 8, 2048), (4, 8, 1024), (8, 24, 256), (8, 8, 9), (8, 8, 5),
+    (1, 8, 2048), (8, 8, 131_072),
+    (1, 1, 130), (1, 1, 65), (2, 4, 100_000), (1, 8, 16384), (3, 2, 1),
+    (64, 8, 4096), (1, 1, 8192), (2, 2, 300), (16, 8, 64)])
+def test_partial_split_covers_every_slot_once(B, Hkv, Sb):
+    """``pd.partial_split``: n chunks of a multiple of ``PART_TILE`` slots,
+    at most ``MAX_CLUSTER``, the fewest that cover the block, each (the
+    last one shorter) taken in pieces of at most 1,024 slots; n doubled
+    while the chunk is longer than ``PART_MIN_CHUNK`` and twice the blocks
+    stay within ``PART_BLOCKS``, and no further."""
+    n, c = pd.partial_split(B, Hkv, Sb)
+    assert 1 <= n <= pd.MAX_CLUSTER and c % pd.PART_TILE == 0 and c > 0
+    spans = [(lo, min(lo + c, Sb)) for lo in range(0, n * c, c)]
+    assert all(lo < hi for lo, hi in spans)
+    pieces = [(p, min(p + PIECE, hi)) for lo, hi in spans
+              for p in range(lo, hi, PIECE)]
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in pieces])
+    np.testing.assert_array_equal(covered, np.arange(Sb))
+    assert all(hi - lo <= PIECE for lo, hi in pieces)
+
+    def chunk(k):
+        return -(-(-(-Sb // k)) // pd.PART_TILE) * pd.PART_TILE
+    k = 1 << (n - 1).bit_length()      # the doubled count, n before the cut
+    assert chunk(k) == c
+    for j in range(k.bit_length() - 1):   # each doubling the rule made
+        assert chunk(1 << j) > pd.PART_MIN_CHUNK
+        assert B * Hkv * (2 << j) <= pd.PART_BLOCKS
+    assert k == pd.MAX_CLUSTER or c <= pd.PART_MIN_CHUNK \
+        or B * Hkv * 2 * k > pd.PART_BLOCKS
