@@ -183,7 +183,14 @@ Phases, one JSON line each:
    with the kernels against the unsharded path and against the sharded
    plain versions (logits within 1e-4, DAC's control equal unless a
    near-tie is reported); µs a fleet step sharded and unsharded, ms a
-   re-deal, prefill s and decode ms a step; (c) after (b), ``MG_SLOT_WORLD``
+   re-deal, prefill s and decode ms a step; then ``MG_ARCHS`` at full
+   width (deepseek-v2-236b 2 layers, jamba-1.5-large-398b 5, xlstm-125m
+   12; bf16, both regimes, then 2 layers in f32 against the unsharded
+   port), deepseek-v2's MLA latent cache split by slots over ``model``
+   (each rank's latent + krope bytes half the unsharded cache's of its
+   rows, checked) and its f32 pool of 192 slots below the 256-token
+   prompt, so that every step evicts (checked) with DAC's control equal
+   to the unsharded port's; (c) after (b), ``MG_SLOT_WORLD``
    = 16 gloo ranks sharing the card on a (data 1, model 16) mesh:
    qwen1.5-110b at full width, 1 of 80 layers, whose 8 KV heads do not
    split 16 ways, so that each rank holds a 16th of the cache's slots
@@ -3999,6 +4006,11 @@ MG_F32_LAYERS, MG_F32_S, MG_F32_STEPS = 2, 256, 8
 MG_ARCHS = (("deepseek-v2-236b", 2), ("jamba-1.5-large-398b", 5),
             ("xlstm-125m", 12))
 MG_ARCH_STEPS = 4
+# the f32 check's bounded pool by model (else MG_SERVE_BUDGET): deepseek-v2's
+# MLA latent cache splits its slots over model (ROADMAP A13.5), checked
+# at a pool below the MG_F32_S-token prompt, so that every step evicts and
+# DAC's control must stay equal to the unsharded port's
+MG_ARCH_F32_BUDGET = {"deepseek-v2-236b": 192}
 # a recurrent state leaf, sharded against unsharded: max |diff| within
 # MG_STATE_TOL x max(1, max |unsharded|)
 MG_STATE_TOL = 1e-4
@@ -4420,9 +4432,11 @@ def mg_arch_f32(dev, sctx, name):
     MG_ARCH_STEPS steps, on the mesh against the unsharded port on rank 0
     (which builds and runs it alone first, then frees it, so that the
     card holds one whole model at a time): logits within SERVE_LOGIT_TOL,
-    DAC's control equal unless a near-tie explains it, every MoE routing
-    and drop equal, the recurrent states within MG_STATE_TOL; the sharded
-    logits' digest (every rank's must be rank 0's)."""
+    DAC's control equal unless a near-tie explains it (equal, where
+    ``MG_ARCH_F32_BUDGET`` sets a pool below the prompt, whose steps must
+    evict), every MoE routing and drop equal, the recurrent states within
+    MG_STATE_TOL, an MLA cache split by slots (``mg_latent_bytes``); the
+    sharded logits' digest (every rank's must be rank 0's)."""
     import dataclasses
     import torch
     from repro_torch.configs import ARCHS
@@ -4434,7 +4448,9 @@ def mg_arch_f32(dev, sctx, name):
     toks = prompt_tokens(cfg, MG_SERVE_B, MG_F32_S + MG_ARCH_STEPS, dev,
                          n=17)
     rank = torch.distributed.get_rank()
-    regimes = (("unbounded", 0), ("bounded", MG_SERVE_BUDGET))
+    evicting = name in MG_ARCH_F32_BUDGET
+    regimes = (("unbounded", 0),
+               ("bounded", MG_ARCH_F32_BUDGET.get(name, MG_SERVE_BUDGET)))
     top_slot, margins, wants = ss._top_slot, [], {}
     t0 = time.perf_counter()
 
@@ -4480,13 +4496,24 @@ def mg_arch_f32(dev, sctx, name):
             got = mg_serve_run(local, cfg, sctx, toks, MG_F32_S,
                                MG_ARCH_STEPS, budget)
         states = mg_whole_states(loc, got["state"])
-        got["state"] = None
         row = {"digest": _digest({str(i): x.cpu().numpy() for i, x in
                                   enumerate(got["logits"])})}
+        latent = mg_latent_bytes(cfg, loc, got["state"],
+                                 budget or MG_F32_S + MG_ARCH_STEPS,
+                                 f"{name} f32 {regime}")
+        if latent:
+            row["latent_bytes"] = latent
+        if budget and evicting:
+            row["evicting"] = pool_evicted(got["state"], budget, MG_F32_S)
+        got["state"] = None
         if rank == 0:
             want, calls, want_states, least = wants[regime]
             row.update(mg_compare(got, want, least, budget,
                                   f"{name} f32 {regime} vs unsharded"))
+            if budget and evicting and row["ctrl_steps_differing"]:
+                raise Mismatch(f"{name} f32 {regime}: ctrl differs from the "
+                               "unsharded port's at steps "
+                               f"{row['ctrl_steps_differing']}")
             if len(calls) != len(routing.calls) or not all(
                     torch.equal(a, b) for a, b in zip(calls, routing.calls)):
                 raise Mismatch(f"{name} f32 {regime}: MoE routing or drops "
@@ -4509,6 +4536,30 @@ def mg_arch_f32(dev, sctx, name):
     return rows
 
 
+def mg_latent_bytes(cfg, loc, state, L, what):
+    """An MLA model's latent + krope bytes on this rank against the
+    unsharded cache of the rank's rows (``L`` slots a layer): every MLA
+    layer split by slots over ``model`` (``st["slots"]`` = ``L``), the
+    rank holding a model-th of the bytes; raises otherwise.  None for a
+    model without MLA layers."""
+    import torch
+    layers = [st for st in state["layers"] if "latent" in st]
+    if not layers:
+        return None
+    mine = sum(st[k].numel() * st[k].element_size() for st in layers
+               for k in ("latent", "krope"))
+    whole = len(layers) * loc.batch * L * (
+        cfg.kv_lora_rank + cfg.qk_rope_head_dim) * torch.empty(
+        (), dtype=cfg.dtype).element_size()
+    if loc.model_ranks * mine != whole or not all(
+            st.get("slots") == L for st in layers):
+        raise AssertionError(f"{what}: a rank holds {mine} latent bytes of "
+                             f"the unsharded {whole} ({loc.model_ranks} "
+                             "model ranks)")
+    return {"rank": mine, "unsharded": whole, "slots": L,
+            "model_ranks": loc.model_ranks}
+
+
 def mg_serve_archs(dev, mesh):
     """MG_ARCHS on the (data 2, model 2) mesh: each rank builds only its
     blocks (``init_params(sctx=)``); bf16 in both regimes (timed, B2/B3
@@ -4521,6 +4572,7 @@ def mg_serve_archs(dev, mesh):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import mesh as M
     from repro_torch.models import init_params
+    from repro_torch.models.model import local_view
     sctx = M.shard_ctx(mesh, mode="serve")
     out = {}
     for name, layers in MG_ARCHS:
@@ -4554,6 +4606,12 @@ def mg_serve_archs(dev, mesh):
             row[regime] = {"prefill_s": run["prefill_s"],
                            "step_ms": run["step_ms"],
                            "logits_shape": list(run["logits"][-1].shape)}
+            latent = mg_latent_bytes(
+                cfg, local_view(cfg, sctx, MG_SERVE_B), run["state"],
+                budget or MG_SERVE_S + MG_ARCH_STEPS,
+                f"sharded {name} {regime}")
+            if latent:
+                row[regime]["latent_bytes"] = latent
             del run
         del local
         _empty(dev)
@@ -5312,6 +5370,9 @@ def phase_multi_gpu(dev, tmp):
             **{f"{regime}_{k}": [r[regime][k] for r in rows]
                for regime in ("unbounded", "bounded")
                for k in ("prefill_s", "step_ms")},
+            **{f"{regime}_latent_bytes": rows[0][regime]["latent_bytes"]
+               for regime in ("unbounded", "bounded")
+               if "latent_bytes" in rows[0][regime]},
             "b2_launches_a_rank": [r["b2_launches"] for r in rows],
             "b3_launches_a_rank": [r["b3_launches"] for r in rows],
             "f32_logits_max_abs_err": max(

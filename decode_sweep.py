@@ -25,6 +25,18 @@ spills of the library's kernels where this run built it.
 
     python3 decode_sweep.py --slot [--src DIR] [--sweep] [--ptxas]
 
+``--mla`` times deepseek-v2-236b's sharded decode step as ``chip_smoke.py``
+phase 15 (b) serves it (full width, its first ``MLA_LAYERS`` layers, bf16,
+B = 8 x 512, a (data 2, model 2) mesh of 4 gloo ranks sharing the card;
+unbounded and a pool of 512), through the ``repro_torch`` under ``--src``:
+the mean ms a step over ``MLA_STEPS`` steps, then the same steps again
+with every collective of ``launch.mesh`` timed between synchronisations
+(host ms, count and bytes a step by kind), and each rank's latent bytes.
+One JSON line a regime; run it once per tree to compare trees in one
+call.
+
+    python3 decode_sweep.py --mla [--src DIR]
+
 Exits non-zero with no result where CUDA is not available.
 """
 from __future__ import annotations
@@ -192,10 +204,80 @@ def slot_cases(da, src, sweep, flush):
             da, "noop_launch") else {"tree": src}), flush=True)
 
 
+MLA_ARCH, MLA_LAYERS, MLA_STEPS = "deepseek-v2-236b", 2, 16
+MLA_B, MLA_S, MLA_BUDGET, MLA_WORLD = 8, 512, 512, 4
+
+
+def mla_world(dev):
+    """One rank of ``--mla``'s world: per regime the mean decode step
+    (``chip_smoke.mg_serve_run``), then the same steps from a fresh
+    prefill with every collective timed between synchronisations."""
+    import dataclasses
+    import time
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params
+    from repro_torch.serving import decode_step, prefill
+    mesh = M.make_test_mesh(2, 2)
+    sctx = M.shard_ctx(mesh, mode="serve")
+    cfg = dataclasses.replace(ARCHS[MLA_ARCH], n_layers=MLA_LAYERS)
+    local = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        cs.SEED), device=dev, sctx=sctx)
+    toks = cs.prompt_tokens(cfg, MLA_B, MLA_S + MLA_STEPS, dev, n=18)
+    stats = {}
+
+    def timed(f):
+        def run(x, *a):
+            cs._sync(dev)
+            t0 = time.perf_counter()
+            out = f(x, *a)
+            cs._sync(dev)
+            row = stats.setdefault(a[-1], [0, 0, 0.0])   # a[-1]: the kind
+            row[0] += 1
+            row[1] += x.numel() * x.element_size()
+            row[2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    out = {}
+    for regime, budget in (("unbounded", 0), ("bounded", MLA_BUDGET)):
+        run = cs.mg_serve_run(local, cfg, sctx, toks, MLA_S, MLA_STEPS,
+                              budget)
+        row = {"step_ms": run["step_ms"], "latent_bytes": sum(
+            st[k].numel() * st[k].element_size()
+            for st in run["state"]["layers"] for k in ("latent", "krope"))}
+        del run
+        state, _ = prefill(local, cfg, tokens=toks[:, :MLA_S], budget=budget,
+                           max_len=MLA_S + MLA_STEPS, sctx=sctx)
+        stats.clear()
+        gather, exchange = M._gather, M._exchange
+        M._gather, M._exchange = timed(gather), timed(exchange)
+        try:
+            cs._sync(dev)
+            t0 = time.perf_counter()
+            for t in range(MLA_S, MLA_S + MLA_STEPS):
+                state, _ = decode_step(local, cfg, state, token=toks[:, t],
+                                       sctx=sctx)
+            cs._sync(dev)
+        finally:
+            M._gather, M._exchange = gather, exchange
+        row["step_ms_collectives_timed"] = \
+            (time.perf_counter() - t0) * 1e3 / MLA_STEPS
+        row["collectives_a_step"] = {
+            kind: {"count": n / MLA_STEPS, "bytes": nb / MLA_STEPS,
+                   "ms": ms / MLA_STEPS}
+            for kind, (n, nb, ms) in stats.items()}
+        out[regime] = row
+        del state
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--slot", action="store_true")
+    ap.add_argument("--mla", action="store_true")
     ap.add_argument("--src", default=str(cs.ROOT / "src"))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
@@ -210,6 +292,25 @@ def main() -> int:
 
     dev = "cuda"
     print(cs.nvidia_smi_line(), flush=True)
+    if args.mla:
+        import os
+        import tempfile
+        from repro_torch.launch import mesh as M
+        from repro_torch.kernels import flash_attention as fa
+        fa._lib()                       # built once, before the ranks
+        # as phase 15: four ranks' allocators share the card's memory
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = M.launch_world(mla_world, MLA_WORLD, (dev,),
+                                   init_file=f"{tmp}/init", backend="gloo",
+                                   device=dev, timeout=600)
+        for regime in ranks[0]:
+            print(json.dumps({
+                "tree": args.src, "arch": MLA_ARCH, "layers": MLA_LAYERS,
+                "regime": regime, "mesh": {"data": 2, "model": 2},
+                "B": MLA_B, "S": MLA_S, "steps": MLA_STEPS,
+                "ranks": [r[regime] for r in ranks]}), flush=True)
+        return 0
     if args.slot:
         flush_buf = torch.ones(cs.FLUSH_BYTES // 4, device=dev)
         da._lib()

@@ -133,16 +133,18 @@ def port_credit_bytes(cfg, cell, n_chips: int, passes: float, *,
       window's band of a slot-split cache is credited as the busiest rank
       streams it, ``min(window, L / model)`` slots: the ranks step
       together;
-    * MLA's latent is whole on every model rank, which attends over every
-      slot of its rows;
+    * MLA's latent is split by slots over ``model`` where the slots
+      divide the axis (``Local.latent_block``), whatever the heads do,
+      and each rank streams its block; else whole on every model rank;
     * MLA's prefill runs B2 on the per-head K (``qk_nope + qk_rope``) and
       V (``v_head_dim``) materialized from the latent, so B2 streams
       those, not the latent.
 
     Where the placements agree (both head counts divide ``model``, or one
-    rank) it equals :func:`kernel_credit_bytes` but for MLA.  B3's merge
-    of a slot-split cache's partials is not credited: it moves each
-    head's ``Dv + 2`` floats a rank, not the cache."""
+    rank) it equals :func:`kernel_credit_bytes` but for MLA's prefill; an
+    MLA decode whose slots divide ``model`` equals it too.  The merge of a
+    slot-split cache's partials is not credited: it moves each head's
+    ``Dv + 2`` floats a rank, not the cache."""
     bsz = 16 * (2 if n_chips == 512 else 1) if bsz is None else bsz
     B, S = cell.global_batch, cell.seq_len
     if cell.kind == "decode" and cell.bounded_budget:
@@ -161,7 +163,9 @@ def port_credit_bytes(cfg, cell, n_chips: int, passes: float, *,
     for spec in cfg.layer_specs():
         if spec.kind == "mla" and cell.kind == "decode":
             width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
-            total += B_loc * S * width * 2 * 2             # latent, whole
+            # the rank's block of the latent's slots (Local.latent_block)
+            blocks = tp_n if S % tp_n == 0 else 1
+            total += B_loc * S * width * 2 * 2 / blocks
             total += 2 * B_loc * H_loc * hd * 2
             continue
         if spec.kind == "mla":           # B2 on the materialized heads

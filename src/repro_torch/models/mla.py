@@ -18,8 +18,17 @@ Dv = r, past what kernel B3 takes (D, Dv <= 256).
 
 Both run on the heads of the weights they are given: under a mesh a
 rank's block of ``w_q``/``w_qb``, ``w_kvb`` and ``wo`` (heads over
-``model``), with the latent and ``k_rope`` whole.  The caller sums the
-output projection and the per-slot mass over the model ranks.
+``model``, where they divide it), and the caller sums the output
+projection over the model ranks.  The reference splits the latent
+cache's slots over ``model`` wherever ``model`` divides them
+(``models.sharding.Local.latent_block``); a decode step over such a
+cache is :func:`mla_attend_slots`: every head's absorbed query gathered,
+each head's partial over the rank's block of slots
+(:func:`absorbed_partial`), the partials exchanged by heads and merged in
+rank order (B3's slot-split law, in plain torch: D 576 / Dv 512 is past
+B3's limit), each block's mass from every head's ``(m, l)`` gathered in
+rank order.  :func:`mla_attend` and :func:`absorbed_attention` stay the
+path over a whole cache.
 """
 from __future__ import annotations
 
@@ -27,10 +36,12 @@ import math
 
 import torch
 
+from ..kernels.decode_attention import decode_attention_merge_plain, pad_heads
 from ..kernels.flash_attention import NEG_INF
 from .layers import apply_rope, attend_prefill, rmsnorm
 
-__all__ = ["mla_latent", "mla_apply", "mla_attend", "absorbed_attention"]
+__all__ = ["mla_latent", "mla_apply", "mla_attend", "absorbed_attention",
+           "absorbed_partial", "mla_attend_slots"]
 
 
 def _queries(x, p, cfg, positions):
@@ -80,6 +91,17 @@ def mla_apply(x, p, cfg, positions, impl="kernel", want_cache=False):
     return out
 
 
+def _absorbed_q(x, p, cfg, position):
+    """x ``[B, 1, d]`` -> (q_lat ``[B, H, r]``, q_rope ``[B, H, dr]``): the
+    queries of the heads of ``p``, q_nope absorbed into latent space
+    through ``w_kb``, and the scale ``1/sqrt(dn + dr)``."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _queries(x, p, cfg, position[:, None])  # [B, 1, H, *]
+    w_kb = p["w_kvb"][..., :dn]                             # [r, H, dn]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_kb)    # [B, 1, H, r]
+    return q_lat[:, 0], q_rope[:, 0], 1.0 / math.sqrt(dn + dr)
+
+
 def mla_attend(x, p, cfg, latent_cache, krope_cache, valid, position):
     """Absorbed-form single-token decode attention.
 
@@ -91,16 +113,74 @@ def mla_attend(x, p, cfg, latent_cache, krope_cache, valid, position):
     signal).  The casts are the reference's: the scores in q's dtype, the
     softmax and ``o_lat`` in f32, ``o_lat`` back to x's dtype before
     ``w_vb``."""
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = _queries(x, p, cfg, position[:, None])  # [B, 1, H, *]
-    w_kb = p["w_kvb"][..., :dn]                             # [r, H, dn]
-    w_vb = p["w_kvb"][..., dn:]                             # [r, H, dv]
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_kb)    # [B, 1, H, r]
-    pr, o_lat = absorbed_attention(q_lat, q_rope, latent_cache, krope_cache,
-                                   valid, 1.0 / math.sqrt(dn + dr))
+    q_lat, q_rope, scale = _absorbed_q(x, p, cfg, position)
+    pr, o_lat = absorbed_attention(q_lat[:, None], q_rope[:, None],
+                                   latent_cache, krope_cache, valid, scale)
+    w_vb = p["w_kvb"][..., cfg.qk_nope_head_dim:]           # [r, H, dv]
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_vb)
     out = torch.einsum("bhv,hvd->bd", o, p["wo"])
     return out, pr.mean(dim=1)
+
+
+def absorbed_partial(q_lat, q_rope, latent_blk, krope_blk, valid, s0,
+                     scale):
+    """:func:`absorbed_attention` over one block of a slot table, B3p's
+    law (``kernels.decode_attention.decode_attention_partial_plain``) on
+    the absorbed form: q_lat ``[B, H, r]``, q_rope ``[B, H, dr]`` every
+    head's; latent/krope ``[B, Sb, r|dr]`` the table's slots ``[s0, s0 +
+    Sb)``; valid ``[B, L]`` the whole rows.  Returns ``(part [B, H, r + 2]
+    f32, scores [B, H, Sb] f32)``: each head's ``(o_lat, m, l)`` over the
+    block (``o_lat`` the block's sum of ``e^(s - m)`` times the latent,
+    ``m`` its largest valid score or -1e30, ``l`` the sum of ``e^(s -
+    m)``, 0 for a block with no valid slot in a row that has some; a row
+    with none weighs all its slots alike), and the block's scaled scores,
+    masked slots -1e30.  The casts are :func:`absorbed_attention`'s: the
+    scores in q's dtype, then f32 times ``scale``."""
+    Sb = latent_blk.shape[1]
+    s = torch.einsum("bhr,btr->bht", q_lat, latent_blk.to(q_lat.dtype))
+    s = s + torch.einsum("bhk,btk->bht", q_rope, krope_blk.to(q_rope.dtype))
+    blk = valid[:, s0:s0 + Sb]
+    s = torch.where(blk[:, None], s.float() * scale, NEG_INF)
+    m = s.amax(dim=-1)
+    # every slot of a row with no valid slot; else the block's valid ones
+    take = blk | ~valid.any(dim=-1, keepdim=True)
+    e = torch.where(take[:, None], torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bht,btr->bhr", e, latent_blk.float())
+    return torch.cat([acc, m[..., None], e.sum(dim=-1)[..., None]],
+                     dim=-1), s
+
+
+def mla_attend_slots(x, p, cfg, latent_blk, krope_blk, valid, position, s0,
+                     loc, mass=True):
+    """:func:`mla_attend` over a latent cache whose slots split over the
+    model ranks (``loc``, a ``models.sharding.Local``): latent/krope
+    ``[B, Sb, r|dr]`` this rank's block ``[s0, s0 + Sb)``, valid ``[B,
+    L]`` the whole rows, ``p`` the rank's heads (:attr:`Local.heads`).
+    Every head's absorbed query gathered (one all-gather where the heads
+    split), every head's :func:`absorbed_partial` over the block, the
+    partials (heads padded to a multiple of the ``N`` model ranks)
+    exchanged by heads (one ``all_to_all``) and merged in rank order
+    (``decode_attention_merge_plain``); the rank's block of the merged
+    heads through its rows of ``w_vb`` and ``wo``, summed over ``model``
+    in rank order.  With ``mass``, each block's mass from every head's
+    ``(m, l)`` over the ranks (one all-gather), the blocks gathered in
+    rank order, else None.  Returns ``(out [B, d]``, ``mass [B, L]`` f32
+    or None), the same on every model rank."""
+    heads = loc.heads
+    q_lat, q_rope, scale = _absorbed_q(x, p, cfg, position)
+    r = q_lat.shape[-1]
+    q = loc.slot_q(torch.cat([q_lat, q_rope], dim=-1), heads)
+    part, scores = absorbed_partial(q[..., :r], q[..., r:], latent_blk,
+                                    krope_blk, valid, s0, scale)
+    parts, ml = loc.slot_exchange(pad_heads(part, loc.model_ranks),
+                                  part[..., -2:] if mass else None)
+    o_lat, blk = decode_attention_merge_plain(parts, ml,
+                                              scores if mass else None,
+                                              dtype=x.dtype)
+    w_vb = loc.slot_rows(p["w_kvb"][..., cfg.qk_nope_head_dim:],
+                         o_lat.shape[1], heads, dim=1)      # [r, Hn, dv]
+    o = torch.einsum("bhr,rhv->bhv", o_lat[:, :w_vb.shape[1]], w_vb)
+    return loc.slot_out(o, p["wo"], heads), loc.slot_mass(blk)
 
 
 def absorbed_attention(q_lat, q_rope, latent_cache, krope_cache, valid,

@@ -287,15 +287,13 @@ def serve_state_shardings(cfg, sctx: ShardCtx, state):
     These are the reference's tables (``tests/test_torch_mesh.py`` holds
     them equal).  The sharded serve path (:class:`Local`) places an
     attention layer's KV cache as they say (a cache whose heads do not
-    divide ``model`` split by slots, :meth:`Local.kv_block`), and some
-    other leaves otherwise:
+    divide ``model`` split by slots, :meth:`Local.kv_block`), and MLA's
+    ``latent``/``krope`` too (their slots over ``model`` where it divides
+    them, :meth:`Local.latent_block`), and some other leaves otherwise:
 
     * DAC's control rows whole on every model rank (they are tiny, and
       DAC's control must agree across the model ranks that attend over
       one pool), the batch over the batch axes;
-    * MLA's ``latent``/``krope`` whole on every model rank (each model
-      rank attends over every slot with its heads), the batch over the
-      batch axes;
     * Mamba's ``conv``/``h`` and mLSTM's ``conv``/``C``/``n``/``m``: the
       channels (heads) over the layer's channel axes, those of its input
       projection's placement (serve mode: ``(model, data)``), and the
@@ -516,7 +514,12 @@ class Local:
     the query and the KV heads divide it; otherwise every model rank runs
     all heads, and an attention layer's KV cache splits by slots over
     ``model`` where they divide it (:meth:`kv_block`; a decode step over
-    such a cache splits the query heads as :attr:`slot_heads` says).  The
+    such a cache splits the query heads as :attr:`slot_heads` says).  An
+    MLA layer's latent cache splits by slots wherever ``model`` divides
+    them (:meth:`latent_block`), its heads split as :attr:`heads` says:
+    a decode step gathers every head's absorbed query (:meth:`slot_q`)
+    and projects the rank's block of the merged heads (:meth:`slot_rows`,
+    :meth:`slot_out`).  The
     MLP's width, the vocabulary and MoE's experts and their width split
     over the axes their placements name; a recurrent layer's channels as
     :meth:`channels` says.
@@ -839,18 +842,32 @@ class Local:
         """The size of the ``model`` axis."""
         return self.sctx.axis_size(self.sctx.tp)
 
+    def latent_block(self, L) -> Tuple[int, int]:
+        """(first slot, slots) of this rank's block of a cache of ``L``
+        slots split by slots over ``model``, as the reference's ``tp_if``
+        places it: slots ``[r L / N, (r + 1) L / N)`` (``r`` the rank's
+        ``model`` coordinate, ``N`` the axis's size) where ``N`` > 1
+        divides ``L``, else ``(0, L)``.  An MLA layer's ``latent`` and
+        ``krope`` (which have no head axis) split so."""
+        n = self.model_ranks
+        if n == 1 or L % n:
+            return 0, L
+        return _index(self.mesh, (self.sctx.tp,))[0] * (L // n), L // n
+
     def kv_block(self, L) -> Tuple[int, int]:
         """(first slot, slots) of this rank's block of an attention layer's
         KV cache of ``L`` slots: where the KV heads do not divide
-        ``model`` and ``L`` does, the reference's slot split (slots
-        ``[r L / N, (r + 1) L / N)``, ``r`` the rank's ``model``
-        coordinate, ``N`` the axis's size); otherwise ``(0, L)``, every
-        slot (the heads split, or the cache whole, as the reference's
-        ``tp_if``)."""
-        n = self.model_ranks
-        if n == 1 or _div(self.cfg.n_kv_heads, n) or L % n:
+        ``model``, :meth:`latent_block`'s; otherwise ``(0, L)``, every
+        slot (the heads split)."""
+        if _div(self.cfg.n_kv_heads, self.model_ranks):
             return 0, L
-        return _index(self.mesh, (self.sctx.tp,))[0] * (L // n), L // n
+        return self.latent_block(L)
+
+    def cache_block(self, kind, L) -> Tuple[int, int]:
+        """(first slot, slots) of this rank's block of a ``kind`` layer's
+        cache of ``L`` slots (``"attn"``: :meth:`kv_block`, ``"mla"``:
+        :meth:`latent_block`)."""
+        return self.kv_block(L) if kind == "attn" else self.latent_block(L)
 
     @property
     def slot_heads(self) -> tuple:
@@ -861,10 +878,12 @@ class Local:
         return (self.sctx.tp,) if _div(self.cfg.n_heads,
                                        self.model_ranks) else ()
 
-    def slot_q(self, q):
-        """Every head's query ``[B, H, D]`` from this rank's (its block of
-        the heads where :attr:`slot_heads` splits them: one all-gather)."""
-        return self.cat(q, self.slot_heads, dim=1) if self.slot_heads else q
+    def slot_q(self, q, heads=None):
+        """Every head's query ``[B, H, D]`` from this rank's: its block of
+        the heads where ``heads`` (default :attr:`slot_heads`; an MLA
+        layer's :attr:`heads`) splits them, one all-gather."""
+        heads = self.slot_heads if heads is None else heads
+        return self.cat(q, heads, dim=1) if heads else q
 
     def slot_exchange(self, part, ml=None):
         """The exchange of a slot-split attention's per-head partials:
@@ -887,17 +906,26 @@ class Local:
         return None if mass is None else self.cat(mass, (self.sctx.tp,),
                                                   dim=1)
 
-    def slot_out(self, o, wo):
+    def slot_rows(self, w, n, heads=None, dim=0):
+        """The rows along ``dim`` of ``w`` (a per-head weight) of this
+        rank's ``n`` heads of the heads padded to a multiple of the model
+        ranks: ``w`` as the rank holds it where ``heads`` (default
+        :attr:`slot_heads`) splits the heads, else cut from the whole,
+        the padded heads dropped."""
+        heads = self.slot_heads if heads is None else heads
+        if heads:
+            return w
+        a = _index(self.mesh, (self.sctx.tp,))[0] * n
+        return w[(slice(None),) * dim + (slice(a, a + n),)]
+
+    def slot_out(self, o, wo, heads=None):
         """A slot-split attention's output ``[B, d]``, the same on every
         model rank: this rank's merged heads ``o`` ``[B, Hp / N, Dv]``
         (its block of the heads padded to a multiple of the ranks) times
-        their rows of ``wo`` (the rank's block where :attr:`slot_heads`
-        splits it, else cut from the whole, the padded heads dropped),
-        summed over ``model`` in rank order."""
-        if not self.slot_heads:
-            a = _index(self.mesh, (self.sctx.tp,))[0] * o.shape[1]
-            wo = wo[a:a + o.shape[1]]
-            o = o[:, :wo.shape[0]]
+        their rows of ``wo`` (:meth:`slot_rows`), summed over ``model`` in
+        rank order."""
+        wo = self.slot_rows(wo, o.shape[1], heads)
+        o = o[:, :wo.shape[0]]
         return self.sum(torch.einsum("bhk,hkd->bd", o, wo),
                         (self.sctx.tp,))
 

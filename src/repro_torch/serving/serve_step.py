@@ -32,7 +32,8 @@ rows of the rank; an attention layer's KV heads, or, where they do not
 divide ``model``, its KV cache's slots (``Local.kv_block``: a model-th
 of the ``L`` slots, as the reference places it, where ``L`` divides the
 axis; such a layer's state records ``L`` as ``"slots"``, a Python int);
-MLA's latent and ``k_rope`` whole on each model rank; Mamba's and
+MLA's latent and ``k_rope`` likewise by slots wherever ``model`` divides
+``L`` (``Local.latent_block``), whole otherwise; Mamba's and
 mLSTM's states over the layer's channel blocks (``Local.state_rows``
 rows), sLSTM's whole; DAC's control rows whole on each model rank.
 :func:`serve_state_shardings` (the reference's tables) says where these
@@ -45,10 +46,15 @@ partial over its block for every head with the whole rows' ``valid``; the
 partials are exchanged by heads (one ``all_to_all``) and merged in rank
 order (``models.layers.attend_decode_slots``), and each rank applies its
 rows of the output projection to its heads, the parts summed over
-``model`` (``Local.slot_out``).  In the bounded regime
-each rank also writes its block's mass from every head's ``(m, l)``
-over the ranks, and the blocks are gathered, so that DAC sees the whole
-rows' mass on every rank.
+``model`` (``Local.slot_out``).  An MLA layer's slot-split decode is
+the same law on the absorbed form in plain torch
+(``models.mla.mla_attend_slots``): every head's absorbed query gathered
+where the heads split, each rank's partial over its block, the exchange,
+the merge, and the rank's rows of ``w_vb`` and ``wo``.  In the bounded
+regime each rank also writes its block's mass from every head's
+``(m, l)`` over the ranks, and the blocks are gathered, so that DAC sees
+the whole rows' mass on every rank.  A sharded MLA layer whose slots
+``model`` divides but whose cache is whole raises.
 
 The state is ``{"pos": [B] int32, "layers": [one dict per layer]}``.
 Unlike the reference (whose arrays are immutable), :func:`decode_step`
@@ -87,15 +93,15 @@ def _layer_state(cfg: ArchConfig, kind, B, max_len, budget, k0, device,
         return RECURRENT[kind][0](cfg, B, cfg.dtype, device, ways)
     L = budget if budget else max_len
     kw = dict(dtype=cfg.dtype, device=device)
+    block = L if loc is None else loc.cache_block(kind, L)[1]
     if kind == "attn":
-        block = L if loc is None else loc.kv_block(L)[1]
         shape = (B, block, n_kv, cfg.head_dim)
         st = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-        if block != L:
-            st["slots"] = L
     else:                                                  # mla
-        st = {"latent": torch.zeros((B, L, cfg.kv_lora_rank), **kw),
-              "krope": torch.zeros((B, L, cfg.qk_rope_head_dim), **kw)}
+        st = {"latent": torch.zeros((B, block, cfg.kv_lora_rank), **kw),
+              "krope": torch.zeros((B, block, cfg.qk_rope_head_dim), **kw)}
+    if block != L:
+        st["slots"] = L
     if budget:
         # serving starts at the full pool: DAC shrinks when hits concentrate
         # rather than evicting from a quarter-size start, unless a fleet
@@ -236,12 +242,27 @@ def _decode_attn(h, p, st, cfg, spec, pos, impl, loc=None, **dac):
 def _decode_mla(h, p, st, cfg, pos, loc=None, **dac):
     """One MLA layer's decode: the token's (latent, k_rope) written into
     the cache, then the absorbed attention (plain torch in both impls).
-    Under a mesh (``loc``) on the rank's rows and heads over the whole
-    latent cache, the mass summed over the model ranks; the output is the
-    rank's heads' part."""
+    Under a mesh (``loc``) on the rank's rows and heads, the output the
+    rank's heads' part, over the whole latent cache (the mass summed over
+    the model ranks) where ``model`` does not divide its slots; else over
+    the rank's block of them (``st["slots"]``;
+    :func:`~repro_torch.models.mla.mla_attend_slots`: the mass the whole
+    rows', the output the whole one)."""
     latent, krope = mla.mla_latent(h, p["attn"], cfg, pos[:, None])
-    ctrl, valid = _insert(st, ("latent", "krope"),
-                          (latent[:, 0], krope[:, 0, 0]), pos, None)
+    rows = (latent[:, 0], krope[:, 0, 0])
+    if "slots" in st:
+        s0 = loc.latent_block(st["slots"])[0]
+        ctrl, valid = _insert(st, CACHE_KEYS["mla"], rows, pos, None, s0)
+        out, mass = mla.mla_attend_slots(h, p["attn"], cfg, st["latent"],
+                                         st["krope"], valid, pos, s0, loc,
+                                         mass=ctrl is not None)
+        _hit(st, ctrl, mass, valid, **dac)
+        return out
+    L = st["latent"].shape[1]
+    if loc is not None and loc.latent_block(L)[1] != L:
+        raise ValueError(f"an MLA cache of {L} slots whole on a rank of "
+                         f"{loc.model_ranks} model ranks, which split them")
+    ctrl, valid = _insert(st, CACHE_KEYS["mla"], rows, pos, None)
     out, mass = mla.mla_attend(h, p["attn"], cfg, st["latent"], st["krope"],
                                valid, pos)
     _hit(st, ctrl, mass if loc is None else loc.heads_sum(mass), valid,
@@ -286,7 +307,8 @@ def decode_step(params, cfg: ArchConfig, state, token=None, embed=None,
             out, new = RECURRENT[spec.kind][1](h[:, 0], p[spec.kind], cfg,
                                                st, ch)
             st.update(new)
-        if loc is not None:
+        # a slot-split layer's output is summed over model already
+        if loc is not None and "slots" not in st:
             out = loc.mixer_out(layer, out)
         x = ffn(x + out[:, None], p, cfg, loc, layer)
     logits = logits_head(params, cfg, x, loc)[:, 0]
@@ -357,7 +379,7 @@ def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
         # a slot-split cache takes its block's columns [s0, s0 + block)
         s0, block = 0, st[CACHE_KEYS[kind][0]].shape[1]
         if "slots" in st:
-            s0 = loc.kv_block(st["slots"])[0]
+            s0 = loc.cache_block(kind, st["slots"])[0]
         for name in CACHE_KEYS[kind]:
             if budget:
                 cols = slice(s0, s0 + block)

@@ -395,8 +395,10 @@ def serve_world(names, budgets, steps, refs, modes=("serve", "train"),
     return out
 
 
-# the configurations whose smoke KV heads (2) do not split 4 ways
-SLOT_ARCHS = ("qwen1.5-110b", "mixtral-8x22b")
+# the configurations whose smoke KV heads (2) do not split 4 ways, and
+# deepseek-v2-236b, whose MLA latent cache splits by slots wherever the
+# model axis divides them (its 4 heads split 4 ways)
+SLOT_ARCHS = ("qwen1.5-110b", "mixtral-8x22b", "deepseek-v2-236b")
 
 
 def _wait_for(done, failed, timeout):
@@ -425,19 +427,22 @@ def _evictions(ctrl):
 def slot_world(names, budgets, steps, refs, whole, padded, ref_dir,
                timeout):
     """Sharded serving with slot-split KV caches on a (data 1, model 4)
-    mesh, serve mode, f32 smoke configs whose KV heads do not divide 4,
-    against the unsharded port:
+    mesh, serve mode, f32 smoke configs whose KV heads do not divide 4 or
+    whose layers are MLA, against the unsharded port:
 
     * ``names``: prefill plus ``steps`` teacher-forced decode steps at
       each budget (``max_len`` 64): logits, DAC's control state after
       every step and the live slots the steps overwrote (a budget below
-      the prompt fills the pool), MoE routing, the KV bytes a rank holds
-      against the unsharded state's, and which layers split their slots;
+      the prompt fills the pool), MoE routing, the cache bytes (K/V,
+      latent/krope) a rank holds against the unsharded state's, and which
+      attention and MLA layers split their slots;
     * ``whole`` (``(name, budget, max_len)`` cases whose slot count does
       not divide 4): the same, the caches whole on every rank;
     * ``padded`` (``(name, query heads, budget)``): the same, at ``max_len``
       64, with query heads that do not divide 4 (``wq`` and ``wo`` whole,
       the heads padded for the exchange);
+    * each MLA config of ``names``: the error a decode step over a whole
+      latent cache of 64 slots raises on the mesh (None if none);
     * ``refs`` (``{name: {budget: file}}``): the sharded decode from a
       fresh state against the reference's own on the same mesh, once the
       reference has written its files (``ref_dir``'s ``done``; it runs
@@ -477,7 +482,8 @@ def slot_world(names, budgets, steps, refs, whole, padded, ref_dir,
                     evictions=_evictions(got[1]),
                     routing_equal=got[2].equals(want[2]),
                     kv_bytes=(kv_bytes(got[3]), kv_bytes(want[3])),
-                    split=["slots" in st for st in got[3]["layers"]])
+                    split=["slots" in st for st in got[3]["layers"]
+                           if "k" in st or "latent" in st])
 
     out = {}
     for name in names:
@@ -487,6 +493,21 @@ def slot_world(names, budgets, steps, refs, whole, padded, ref_dir,
         out[("whole", name, budget)] = run(name, budget, max_len)
     for name, heads, budget in padded:
         out[("padded", name, budget)] = run(name, budget, 64, n_heads=heads)
+    # an MLA cache held whole where the model axis splits its slots raises
+    # (no whole-cache fallback); every rank raises before any collective
+    for name in names:
+        cfg = f32(name)
+        if all(s.kind != "mla" for s in cfg.layer_specs()):
+            continue
+        blocks = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", sctx=sctx)
+        whole = init_serve_state(cfg, 4, max_len=64, device="cpu")
+        try:
+            decode_step(blocks, cfg, whole, token=torch.zeros(
+                4, dtype=torch.int64), sctx=sctx)
+            out[("whole-raises", name)] = None
+        except ValueError as e:
+            out[("whole-raises", name)] = str(e)
     _wait_for(f"{ref_dir}/done", f"{ref_dir}/failed", timeout)
     for name, files in refs.items():
         cfg = f32(name)

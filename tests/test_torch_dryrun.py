@@ -143,6 +143,26 @@ def test_port_credit_equals_reference_where_placements_agree(arch, shape,
         D.kernel_credit_bytes(*args, **shards)
 
 
+MLA_ARCHS = [a for a in ARCHS
+             if any(s.kind == "mla" for s in PC.ARCHS[a].layer_specs())]
+DECODE_SHAPES = [s for s in SHAPES if PC.SHAPES[s].kind == "decode"]
+
+
+@pytest.mark.parametrize("n_chips", [1, 256, 512])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("arch", MLA_ARCHS)
+def test_port_credit_equals_reference_for_mla_decode(arch, shape, n_chips):
+    """An MLA decode streams the rank's block of the latent's slots, as the
+    reference places it (``P(b, tp_if(L), None)``): the port's credit is
+    the reference's law, exactly, for every decode cell."""
+    cfg, cell = PC.ARCHS[arch], PC.SHAPES[shape]
+    assert (cell.bounded_budget or cell.seq_len) % 16 == 0
+    shards = {"tp_n": 1, "bsz": 1} if n_chips == 1 else {}
+    args = (cfg, cell, n_chips, D.PASSES[cell.kind])
+    assert D.port_credit_bytes(*args, **shards) == \
+        D.kernel_credit_bytes(*args, **shards)
+
+
 def _decode_credit_from_state(cfg, cell, state, local):
     """:func:`~repro_torch.launch.dryrun.port_credit_bytes`' law for a
     decode step, read off the rank's own serve state and placement: each
@@ -178,8 +198,8 @@ def test_port_credit_reads_the_ranks_own_cache(arch, shape, mesh_kind):
     the port's placement (``serve_state_specs(sctx=)`` in a fake world)
     and runs the heads ``sharding.Local`` gives it: a KV cache whose heads
     do not divide ``model`` (musicgen's 24) is read over the rank's
-    ``model``-th of its slots, every head of it; MLA's latent whole on
-    every model rank."""
+    ``model``-th of its slots, every head of it; MLA's latent over the
+    rank's ``model``-th of its slots, the rank's heads."""
     from repro_torch.models.sharding import Local, param_specs
     cfg, cell = PC.ARCHS[arch], PC.SHAPES[shape]
     mshape, _ = MESHES[mesh_kind]
@@ -243,19 +263,19 @@ def test_rank_param_bytes_equal_reference(arch, mesh_kind, mode):
 
 def _state_factor(kind, name, spec, sizes, B, heads):
     """The port's rank bytes of a serve-state leaf over the reference's
-    (ROADMAP C, "Edges"): DAC's control rows, MLA's latent cache and the
-    sLSTM cell's state are whole on every model rank, and so is an
-    mLSTM's state where its heads do not split over ``model`` (a rank
-    holds whole heads), where the reference splits them over ``model``;
-    Mamba's channels split over ``(model, data)``, so with a batch that
-    does not split over the batch axes a rank holds a ``data``-th of the
-    reference's.  Every attention layer's KV cache is the reference's
-    block (its heads, or its slots, over ``model``)."""
+    (ROADMAP C, "Edges"): DAC's control rows and the sLSTM cell's state
+    are whole on every model rank, and so is an mLSTM's state where its
+    heads do not split over ``model`` (a rank holds whole heads), where
+    the reference splits them over ``model``; Mamba's channels split over
+    ``(model, data)``, so with a batch that does not split over the batch
+    axes a rank holds a ``data``-th of the reference's.  Every attention
+    layer's KV cache and every MLA layer's latent cache is the
+    reference's block (its heads, or its slots, over ``model``)."""
     tp = sizes["model"]
     bsz = sizes["data"] * sizes.get("pod", 1)
     over_model = any(e == "model" or (isinstance(e, tuple) and "model" in e)
                      for e in spec)
-    whole = (name in ("rank2slot", "free", "slot_pos", "latent", "krope")
+    whole = (name in ("rank2slot", "free", "slot_pos")
              or kind == "slstm" or (kind == "mlstm" and heads % tp))
     if whole:
         return tp if over_model else 1

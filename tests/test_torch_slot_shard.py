@@ -1,6 +1,8 @@
 """The reference's slot-sharded KV cache for sharded serving: a KV cache
-whose heads do not divide ``model`` splits its slots over ``model``
-(``src/repro/serving/serve_step.py::serve_state_shardings``), and B3 runs
+whose heads do not divide ``model``, and every MLA latent cache, splits
+its slots over ``model`` where they divide it
+(``src/repro/serving/serve_step.py::serve_state_shardings``), and B3 (MLA:
+its absorbed decode, ``tests/test_torch_mla_slot.py`` holds the law) runs
 as a per-rank partial and a rank-ordered merge.
 
 * B3's two parts (``decode_attention_partial_plain``,
@@ -12,13 +14,16 @@ as a per-rank partial and a rank-ordered merge.
 * In a 4-rank gloo world on the CPU (``_torch_worlds.slot_world``), a
   (data 1, model 4) mesh, f32, both regimes, prefill and ``STEPS``
   teacher-forced decode steps: qwen1.5-110b's and mixtral-8x22b's smoke
-  configs (2 KV heads: slot-split) give logits within ``TOL`` of the
-  unsharded port, DAC's control state equal after every step, and a
-  rank's KV bytes a quarter of the unsharded cache's; a slot count that
-  does not divide 4 keeps the cache whole.  The pool (16 slots) is
-  smaller than the prompt (24 tokens), so every decode step evicts.
+  configs (2 KV heads: slot-split) and deepseek-v2-236b's (MLA, its 4
+  heads split 4 ways, its latent cache slot-split) give logits within
+  ``TOL`` of the unsharded port, DAC's control state equal after every
+  step, MoE routing equal, and a rank's KV (latent + krope) bytes a
+  quarter of the unsharded cache's; a slot count that does not divide 4
+  keeps the cache whole.  The pool (16 slots) is smaller than the prompt
+  (24 tokens), so every decode step evicts.
 * Query heads that do not divide 4 (6 over 4 ranks): the same law, the
-  heads padded for the exchange.
+  heads padded for the exchange (for MLA, ``w_kvb``'s value half and
+  ``wo`` cut to each rank's heads).
 * Sharded decode from a fresh state held within ``TOL`` of the
   reference's own on the same mesh, ``REF_STEPS`` steps into a pool of
   ``REF_BUDGETS``' 8 slots (the last 4 steps evict), in a subprocess with
@@ -50,9 +55,10 @@ STEPS = 6
 # the reference's decode from a fresh state: 12 steps, a pool of 8 slots
 REF_BUDGETS, REF_STEPS = (0, 8), 12
 # (name, budget, max_len): a slot count that 4 does not divide
-WHOLE = (("qwen1.5-110b", 0, 30), ("mixtral-8x22b", 18, 64))
+WHOLE = (("qwen1.5-110b", 0, 30), ("mixtral-8x22b", 18, 64),
+         ("deepseek-v2-236b", 0, 30))
 # (name, query heads, budget): query heads that 4 does not divide
-PADDED = (("qwen1.5-110b", 6, 16),)
+PADDED = (("qwen1.5-110b", 6, 16), ("deepseek-v2-236b", 6, 16))
 
 REFERENCE = r"""
 import dataclasses, os, sys
@@ -204,7 +210,8 @@ def test_partial_and_merge_equal_plain_b3(case, n):
 def test_slot_split_serving_equals_unsharded(served, name, budget):
     """Every rank's whole-batch logits within ``TOL`` of the unsharded
     port's at the prefill and each decode step, the same bits on every
-    rank; every attention layer's cache slot-split; in the bounded regime
+    rank; every attention and MLA layer's cache slot-split; in the bounded
+    regime
     DAC's control state equal to the unsharded one's after every step, the
     steps writing over live slots; MoE routing equal."""
     for out in served:
@@ -213,7 +220,7 @@ def test_slot_split_serving_equals_unsharded(served, name, budget):
         assert got.shape == want.shape == (STEPS + 1,) + want.shape[1:]
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-        assert all(row["split"]) and row["routing_equal"]
+        assert row["split"] and all(row["split"]) and row["routing_equal"]
         if budget:
             assert row["ctrl_steps"] and row["ctrl_equal"]
             assert row["evictions"] > 0
@@ -224,7 +231,8 @@ def test_slot_split_serving_equals_unsharded(served, name, budget):
 @pytest.mark.parametrize("budget", BUDGETS)
 @pytest.mark.parametrize("name", worlds.SLOT_ARCHS)
 def test_slot_split_rank_holds_a_quarter_of_the_cache(served, name, budget):
-    """A rank's KV bytes are a quarter of the unsharded cache's."""
+    """A rank's KV (or latent + krope) bytes are a quarter of the
+    unsharded cache's."""
     for out in served:
         mine, whole = out[(name, budget)]["kv_bytes"]
         assert whole > 0 and 4 * mine == whole
@@ -248,10 +256,11 @@ def test_indivisible_slots_stay_whole(served, case):
 
 @pytest.mark.parametrize("case", PADDED)
 def test_indivisible_query_heads_pad_the_exchange(served, case):
-    """Query heads that the model axis does not divide (6 over 4 ranks,
-    2 KV heads): ``wq`` and ``wo`` stay whole, the exchange pads the heads
-    to 8 and each rank projects its real ones; logits within ``TOL`` of
-    the unsharded port, control state equal, the steps evicting."""
+    """Query heads that the model axis does not divide (6 over 4 ranks):
+    ``wq`` and ``wo`` (MLA: ``w_q``/``w_qb``, ``w_kvb`` and ``wo``) stay
+    whole, the exchange pads the heads to 8 and each rank projects its
+    real ones; logits within ``TOL`` of the unsharded port, control state
+    equal, the steps evicting."""
     name, _, budget = case
     for out in served:
         row = out[("padded", name, budget)]
@@ -259,6 +268,15 @@ def test_indivisible_query_heads_pad_the_exchange(served, case):
             row["kv_bytes"][1]
         np.testing.assert_allclose(*row["logits"], rtol=0, atol=TOL)
         assert row["ctrl_equal"] and row["evictions"] > 0
+
+
+def test_whole_latent_cache_where_slots_split_raises(served):
+    """A decode step over an MLA latent cache held whole on a rank, where
+    the model axis divides its slots, raises instead of attending over
+    the whole cache: no fallback hides the split."""
+    for out in served:
+        err = out[("whole-raises", "deepseek-v2-236b")]
+        assert err is not None and "whole" in err
 
 
 @pytest.mark.parametrize("budget", REF_BUDGETS)
