@@ -72,7 +72,7 @@ Phases, one JSON line each:
    merge timed at each shape in bf16 with L2 cold beside their byte
    bounds, blocks and launches a call, and the time of an empty launch;
 6. serve: deepseek-7b at full width and depth (30 layers, bf16, seeded
-   random weights) through ``prefill`` + 64 greedy ``decode_step`` s on
+   random weights) through ``prefill`` + 32 greedy ``decode_step`` s on
    B = 8 prompts of 2048 tokens, unbounded and with the DAC-bounded pool
    (budget 512); B2 launches 30 times per prefill, B3 30 times per step;
    two more steps of each regime and the unbounded prefill run under
@@ -139,14 +139,18 @@ Phases, one JSON line each:
    56 layers, B = 2, 4,608-token prompts past its 4,096 window, 32
    steps), jamba-1.5-large-398b (its first 5 of 72 layers: four Mamba, two
    of them MoE, and one attention layer; B = 2, 2,048, 32 steps) and
-   xlstm-125m (all 12 layers; B = 8, 2,048, 64 steps) at full width in
-   bf16, unbounded and with the DAC pool of 512 slots: B2 once a prefill
+   xlstm-125m (all 12 layers; B = 8, 2,048, 64 steps) and qwen1.5-110b
+   unsharded (GQA 64/8 with QKV bias; 4 of 80 layers, B = 8, 2,048, 16
+   steps) at full width in bf16, unbounded and with the DAC pool of 512
+   slots: B2 once a prefill
    per attention and MLA layer, B3 once a step per attention layer (MLA's
    absorbed decode is plain torch), finite logits, the capacity's drops,
    KV bytes, DAC's sizes, and two profiled decode steps with the device
-   ms of the MoE, MLA and DAC control; then deepseek-v2-236b and mixtral
-   at 2 layers in f32 with kernels against plain versions as phase 7
-   does, MoE routing equal too unless a near-tie in the router's
+   ms of the MoE, MLA and DAC control; then deepseek-v2-236b, mixtral,
+   gemma2-27b (B = 1, 4,608-token prompts past its window), codeqwen1.5-7b,
+   llava-next-mistral-7b and musicgen-medium (the last two fed
+   embeddings) at 2 layers in f32 with kernels against plain versions as
+   phase 7 does, MoE routing equal too unless a near-tie in the router's
    probabilities is reported;
 14. training, through ``repro_torch.train`` with the plain attention (B2
    has no backward, as the reference's Pallas kernel has none): (a)
@@ -223,7 +227,27 @@ Phases, one JSON line each:
    the pod cell's bytes a rank and dominant term; phase 15's world (c):
    qwen1.5-110b's 1-layer rank on the (data 1, model 16) mesh in a fake
    world of 16, its argument bytes against what the rank's allocator
-   held and its KV bytes equal.
+   held and its KV bytes equal;
+18. the serve entry point (it runs after phase 13): ``python -m
+   repro_torch.launch.serve``'s ``main(argv)`` called in this process on
+   the card for gemma2-27b (B = 1, 4,608-token prompts past its 4,096
+   window), codeqwen1.5-7b (B = 8, 2,048), llava-next-mistral-7b (B = 8,
+   2,048 embeddings) and musicgen-medium (B = 8, 1,500 embeddings) at full
+   width and depth in bf16, 16 greedy steps, unbounded and with
+   ``--budget 512``: the device CUDA, B2 once a prefill and B3 once a step
+   per attention layer, every greedy token in ``[0, vocab)``, every logit
+   finite, every layer's ``k_active`` in ``(0, 512]``; main's prefill s,
+   decode ms a step and tok/s, the device-busy share of its last step run
+   again under ``torch.profiler``, the peak allocation; then bf16 serving
+   against plain at 2 layers (``BF16_VS_PLAIN``: deepseek-7b at phase 6's
+   shape and the four), both regimes, 8 teacher-forced steps: the kernel
+   path K and the plain path P in bf16 against the plain path F in f32 on
+   the same weights, max |K - F| within ``BF16_SERVE_FACTOR`` x max
+   |P - F|, K's and F's DAC hits forced to P's, each of K's own hits that
+   differs from P's a near-tie (P's top-2 margin there within the step's
+   largest mass difference), the first layer's mass within ``MASS_TOL``;
+   two planted faults on gemma2's kernel path (the local window dropped,
+   the softcaps off) shown to fail the gate.
 
 Phase 7 also runs three bounded decode steps with ``kv_caps`` (one cap a
 sequence: deny, partial, full) and holds ``kv_cache.resize(cap=)`` on the
@@ -1566,7 +1590,9 @@ def phase_attention(dev):
 # phases 6 and 7: the serve path
 # ---------------------------------------------------------------------------
 
-SERVE_B, SERVE_S, SERVE_GEN, SERVE_BUDGET = 8, 2048, 64, 512
+# 32 greedy steps, a cut for the smoke's time: phase 18 serves four more
+# dense models at full depth
+SERVE_B, SERVE_S, SERVE_GEN, SERVE_BUDGET = 8, 2048, 32, 512
 SERVE_MAX_LEN = SERVE_S + SERVE_GEN + 2   # two traced steps at the end
 
 
@@ -1575,6 +1601,20 @@ def prompt_tokens(cfg, B, S, dev, n=0):
     import torch
     rng = np.random.default_rng(SEED + n)
     return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+
+
+def serve_inputs(cfg, B, T, dev, n=0):
+    """Teacher-forced inputs at ``T`` positions of ``B`` sequences: token
+    ids, or for an embeddings-input model (llava, musicgen) seeded standard
+    normal embeddings ``[B, T, d]`` in f32, which the model casts to its
+    dtype.  Returns (prefill keyword, decode keyword, inputs)."""
+    import numpy as np
+    import torch
+    if not cfg.embeds_input:
+        return "tokens", "token", prompt_tokens(cfg, B, T, dev, n)
+    rng = np.random.default_rng(SEED + n)
+    x = rng.standard_normal((B, T, cfg.d_model), dtype=np.float32)
+    return "embeds", "embed", torch.from_numpy(x).to(dev)
 
 
 def profile_ms(fn, n=1, ranges=()):
@@ -1752,7 +1792,8 @@ def moe_layers(cfg):
 def serve_vs_plain(dev, cfg, B, S, steps, budget, cap_steps, n=1):
     """One regime of the serve path with the kernels against the same path
     with their plain versions (prefill + ``steps`` teacher-forced decode
-    steps, then ``cap_steps`` with ``kv_caps`` when bounded): f32 logits
+    steps, then ``cap_steps`` with ``kv_caps`` when bounded; tokens, or
+    embeddings for an embeddings-input model): f32 logits
     within ``SERVE_LOGIT_TOL`` up to the first step where DAC's control or
     an MoE routing differs, which only a near-tie may explain (the plain
     run's top-2 mass margin, or the gap between the router's k-th and
@@ -1772,7 +1813,7 @@ def serve_vs_plain(dev, cfg, B, S, steps, budget, cap_steps, n=1):
     n_b2 = sum(k in ("attn", "mla") for k in kinds)
     n_b3 = kinds.count("attn")
     n_moe = moe_layers(cfg)
-    toks = prompt_tokens(cfg, B, S + steps + cap_steps, dev, n=n)
+    key, step_key, xs = serve_inputs(cfg, B, S + steps + cap_steps, dev, n)
     rec = {"plain": False, "margins": [], "routes": []}
     top_slot, route = ss._top_slot, moe.route
 
@@ -1795,7 +1836,7 @@ def serve_vs_plain(dev, cfg, B, S, steps, budget, cap_steps, n=1):
         for impl in ("kernel", "plain"):
             fa.LAUNCHES = da.LAUNCHES = 0
             rec.update(plain=impl == "plain", margins=[], routes=[])
-            state, last = prefill(params, cfg, tokens=toks[:, :S],
+            state, last = prefill(params, cfg, **{key: xs[:, :S]},
                                   max_len=S + steps + cap_steps,
                                   budget=budget, impl=impl)
             logs, ctrls = [last], []
@@ -1808,7 +1849,8 @@ def serve_vs_plain(dev, cfg, B, S, steps, budget, cap_steps, n=1):
                     caps = kv_caps_for(next(
                         st for st in state["layers"]
                         if "ctrl" in st)["ctrl"]["k_active"])
-                state, lg = decode_step(params, cfg, state, token=toks[:, t],
+                state, lg = decode_step(params, cfg, state,
+                                        **{step_key: xs[:, t]},
                                         kv_caps=caps, impl=impl)
                 logs.append(lg)
                 if budget:
@@ -1913,11 +1955,21 @@ ARCH_SERVE = (
     ("jamba-1.5-large-398b", 5, 2, 2048, 32),
     # mLSTM + sLSTM, nothing cut
     ("xlstm-125m", 12, 8, 2048, 64),
+    # GQA 64/8 with QKV bias, unsharded: B3 at g = 8 over the whole cache;
+    # 4 of 80 layers (15.9 GB of weights; all 80 are 222.4 GB, past one
+    # card)
+    ("qwen1.5-110b", 4, 8, 2048, 16),
 )
 ARCH_BUDGET = 512
 # serve vs plain in f32 at 2 layers: name, B, prompt, teacher-forced steps
 ARCH_VS_PLAIN = (("deepseek-v2-236b", 2, 1024, 8),
-                 ("mixtral-8x22b", 1, 4608, 8))
+                 ("mixtral-8x22b", 1, 4608, 8),
+                 # softcaps, and the prompt past the local layer's window
+                 ("gemma2-27b", 1, 4608, 8),
+                 ("codeqwen1.5-7b", 8, 2048, 8),
+                 # embeddings as input
+                 ("llava-next-mistral-7b", 8, 2048, 8),
+                 ("musicgen-medium", 8, 1500, 8))
 # the device ranges a decode step's profile splits out
 STEP_RANGES = {"moe": (("repro_torch.models.moe", "moe_apply"),),
                "mla": (("repro_torch.models.mla", "mla_latent"),
@@ -2140,6 +2192,336 @@ def phase_archs(dev):
                 "b3": sum(r[g]["b3_launches"] for r in served
                           for g in ("unbounded", "bounded"))}
     return ({"phase": "archs", "served": served, "serve_vs_plain": vs_plain,
+             "s": time.perf_counter() - t0}, launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the serve entry point on the card, and bf16 serving against plain
+# ---------------------------------------------------------------------------
+
+# ``repro_torch.launch.serve.main`` at full width and depth in bf16: name, B,
+# prompt, greedy steps.  The lengths are these models' deployments: gemma2
+# past its 4,096 window (so that it binds in B2 and B3 on the local layers),
+# a code-completion batch, an anyres image's tiles plus text, 30 s of audio
+# at 50 frames a second
+ENTRY_RUNS = (("gemma2-27b", 1, 4608, 16),
+              ("codeqwen1.5-7b", 8, 2048, 16),
+              ("llava-next-mistral-7b", 8, 2048, 16),
+              ("musicgen-medium", 8, 1500, 16))
+ENTRY_BUDGET = 512
+# bf16 serving against plain at 2 layers: name, B, prompt, teacher-forced
+# steps (deepseek-7b at phase 6's shape, the others at phase 18's)
+BF16_VS_PLAIN = (("deepseek-7b", SERVE_B, SERVE_S, 8),
+                 ("gemma2-27b", 1, 4608, 8),
+                 ("codeqwen1.5-7b", 8, 2048, 8),
+                 ("llava-next-mistral-7b", 8, 2048, 8),
+                 ("musicgen-medium", 8, 1500, 8))
+# The bf16 gate.  Three teacher-forced runs from the same bf16 weights: K,
+# the kernel path in bf16; P, the plain path in bf16; F, the plain path in
+# f32 with those weights upcast.  K and P differ only in attention (B2 and
+# B3 against their plain versions); both round every product, the residual
+# stream and the logits to bf16, which sets their distance from F.  A sound
+# kernel path adds roundings of its own no larger than P's and independent
+# of them, so |K - F| ~ sqrt(|P - F|^2 + |K - P|^2) <= sqrt(2) |P - F|; the
+# factor 1.5 is that with a little room.  (The factor 2 of the triangle
+# inequality passes the softcaps off, which reads 1.80 on gemma2 on an
+# H100: PERF.md.)  Sound runs read 0.90-1.09 there; gemma2's kernel path
+# with its local window dropped reads 43, with the softcaps off 1.80, and
+# both must fail.  The attention softcap alone reads 1.12: with random
+# weights the scores are ~N(0, 1), which a cap at 50 moves by < 0.02, below
+# bf16's resolution; phase 5 holds B2's and B3's cap in f32 within 2e-5.
+BF16_SERVE_FACTOR = 1.5
+
+
+def bf16_vs_plain(dev, cfg, B, S, steps, budget, faults=None, n=3):
+    """One regime of the bf16 gate (``BF16_SERVE_FACTOR``): prefill +
+    ``steps`` teacher-forced decode steps as P, then K and F.  In the
+    bounded regime K and F take P's DAC hit at every layer and step, so
+    that all three keep the same caches and every step's logits compare;
+    wherever K's own choice differs from P's (where an unforced K's
+    control would first leave P's), P's top-2 mass margin at those rows
+    must be at most that step's largest |mass_K - mass_P| (a near-tie on
+    bf16's own scale).  ``faults`` (name -> (a config K runs with instead,
+    whether it must fail)) are planted faults, each reported with its
+    reading.  The first layer's inputs are the same bits in K and P, so its
+    mass is held within ``MASS_TOL`` at every step, as phase 5 holds
+    B3's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving import serve_step as ss
+    from torch.utils._pytree import tree_map
+
+    if moe_layers(cfg):
+        raise ValueError(f"{cfg.name}: the bf16 gate holds dense models")
+    n_attn = sum(sp.kind == "attn" for sp in cfg.layer_specs())
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    key, step_key, xs = serve_inputs(cfg, B, S + steps, dev, n)
+    if cfg.embeds_input:           # F sees K's and P's bf16 inputs
+        xs = xs.to(torch.bfloat16).float()
+    top_slot = ss._top_slot
+    rec = {"calls": [], "force": None}
+
+    def recording_top(mass, valid):
+        """Record the mass, the own choice and each row's top-2 margin;
+        return P's choice at this call when forced."""
+        own = top_slot(mass, valid)
+        top2 = mass.masked_fill(~valid, float("-inf")).topk(2).values
+        rec["calls"].append((mass.clone(), own, top2[:, 0] - top2[:, 1]))
+        force = rec["force"]
+        return own if force is None else force[len(rec["calls"]) - 1]
+
+    def run(c, p, impl, forced=None):
+        fa.LAUNCHES = da.LAUNCHES = 0
+        state, last = prefill(p, c, **{key: xs[:, :S]}, max_len=S + steps,
+                              budget=budget, impl=impl)
+        logs, calls = [last], []
+        for i, t in enumerate(range(S, S + steps)):
+            rec.update(calls=[], force=None if forced is None else forced[i])
+            state, lg = decode_step(p, c, state, **{step_key: xs[:, t]},
+                                    impl=impl)
+            logs.append(lg)
+            calls.append(rec["calls"])
+        want = (n_attn, n_attn * steps) if impl == "kernel" else (0, 0)
+        if (fa.LAUNCHES, da.LAUNCHES) != want:
+            raise AssertionError(f"{c.name} bf16 {budget} {impl}: launches "
+                                 f"{(fa.LAUNCHES, da.LAUNCHES)}, expected "
+                                 f"{want}")
+        ctrl = [st["ctrl"] for st in state["layers"] if "ctrl" in st]
+        return logs, calls, ctrl
+
+    ss._top_slot = recording_top
+    try:
+        P = run(cfg, params, "plain")
+        forced = [[own for _, own, _ in step] for step in P[1]]
+        K = run(cfg, params, "kernel", forced)
+        F = run(dataclasses.replace(cfg, param_dtype="float32"),
+                tree_map(torch.Tensor.float, params), "plain", forced)
+        planted = {name: run(c, params, "kernel", forced)[0]
+                   for name, (c, _) in (faults or {}).items()}
+    finally:
+        ss._top_slot = top_slot
+    del params
+    for what, other in (("K", K), ("F", F)):
+        if any(not torch.equal(a[k], b[k])
+               for a, b in zip(other[2], P[2]) for k in a):
+            raise AssertionError(f"bf16 vs plain {cfg.name}: {what}'s "
+                                 f"control left P's under P's hits")
+    row = {"steps": steps, "budget": budget}
+    differ, f_differ, first_mass = [], [], 0.0
+    for t, (ks, ps, fs) in enumerate(zip(K[1], P[1], F[1])):
+        if any(not torch.equal(f[1], p[1]) for f, p in zip(fs, ps)):
+            f_differ.append(t)
+        if ks:
+            first_mass = max(first_mass,
+                             float((ks[0][0] - ps[0][0]).abs().max()))
+        rows = [(k[1] != p[1]) for k, p in zip(ks, ps)]
+        if not any(bool(r.any()) for r in rows):
+            continue
+        dm = max(float((k[0] - p[0]).abs().max()) for k, p in zip(ks, ps))
+        margin = max(float(p[2][r].max()) for p, r in zip(ps, rows)
+                     if r.any())
+        differ.append({"step": t, "rows": sum(int(r.sum()) for r in rows),
+                       "top2_margin": margin, "mass_diff": dm})
+        if margin > dm:
+            raise Mismatch(f"bf16 vs plain {cfg.name} {budget}: K's DAC hit "
+                           f"leaves P's at step {t} with a top-2 margin "
+                           f"{margin} > the masses' difference {dm}")
+    if first_mass > MASS_TOL:
+        raise Mismatch(f"bf16 vs plain {cfg.name} {budget}: the first "
+                       f"layer's mass differs by {first_mass} > {MASS_TOL}")
+    if budget:
+        row.update(hits_differing=differ, f32_hits_differing_steps=f_differ,
+                   first_layer_mass_err=first_mass,
+                   unforced_logits_compared=(differ[0]["step"] + 1
+                                             if differ else len(K[0])),
+                   min_top2_margin=min(
+                       (float(p[2].min()) for s in P[1] for p in s),
+                       default=None))
+
+    def err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    kf, pf = err(K[0], F[0]), err(P[0], F[0])
+    agree = torch.cat([(x.argmax(-1) == y.argmax(-1)).float()
+                       for x, y in zip(K[0], P[0])])
+    row.update(k_vs_f32=kf, plain_vs_f32=pf,
+               ratio=kf / pf if pf else math.inf,
+               factor=BF16_SERVE_FACTOR, logits_compared=len(K[0]),
+               top1_agreement_with_plain=float(agree.mean()))
+    if kf > BF16_SERVE_FACTOR * pf:
+        raise Mismatch(f"bf16 vs plain {cfg.name} {budget}: the kernel path "
+                       f"is {kf} from f32, more than {BF16_SERVE_FACTOR} x "
+                       f"the plain path's {pf}")
+    if planted:
+        row["planted"] = {name: {"k_vs_f32": err(logs, F[0]),
+                                 "must_fail": faults[name][1]}
+                          for name, logs in planted.items()}
+        for reading in row["planted"].values():
+            reading["ratio"] = reading["k_vs_f32"] / pf if pf else math.inf
+        passed = [name for name, r in row["planted"].items()
+                  if r["must_fail"]
+                  and r["k_vs_f32"] <= BF16_SERVE_FACTOR * pf]
+        if passed:
+            raise AssertionError(f"bf16 gate {cfg.name}: the planted faults "
+                                 f"{passed} pass it ({row['planted']}, "
+                                 f"plain {pf})")
+    torch.cuda.empty_cache()
+    return row
+
+
+def planted_faults(cfg):
+    """The bf16 gate's planted faults for gemma2, name -> (the config the
+    kernel path runs with, whether the gate must fail it): the local
+    layers' window dropped, and the softcaps (attention and final) off,
+    which must fail; the attention softcap alone off, reported only
+    (``BF16_SERVE_FACTOR``)."""
+    import dataclasses
+    return {"window dropped": (dataclasses.replace(cfg, period=tuple(
+                dataclasses.replace(sp, window=None) for sp in cfg.period)),
+                True),
+            "softcaps off": (dataclasses.replace(
+                cfg, attn_softcap=0.0, final_softcap=0.0), True),
+            "attention softcap off": (dataclasses.replace(
+                cfg, attn_softcap=0.0), False)}
+
+
+def entry_run(dev, name, B, S, gen, budget):
+    """``repro_torch.launch.serve.main`` for ``name`` at full width and
+    depth, as ``python -m repro_torch.launch.serve`` runs it, with its
+    ``prefill`` and ``decode_step`` wrapped to count B2 in the prefill,
+    check every logit finite and on the card,
+    and keep the last step's inputs, which it runs again under
+    ``torch.profiler`` once ``main`` has returned (main's own times stay
+    clear of the tracer)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import repro_torch.serving as serving
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.serving import serve_step as ss
+    from torch.utils._pytree import tree_map
+
+    cfg = ARCHS[name]
+    n_attn = sum(sp.kind == "attn" for sp in cfg.layer_specs())
+    prefill, decode_step = serving.prefill, serving.decode_step
+    kind = torch.device(dev).type                 # "cuda" in the smoke
+    seen = {"calls": 0, "bad": 0, "on": True}
+
+    def counted_prefill(*a, **kw):
+        state, logits = prefill(*a, **kw)
+        seen["b2"] = fa.LAUNCHES
+        seen["on"] &= logits.device.type == kind
+        seen["bad"] = seen["bad"] + (~torch.isfinite(logits)).sum()
+        return state, logits
+
+    def checked_decode(params, cfg, state, **kw):
+        seen["calls"] += 1
+        if seen["calls"] == gen:   # the last step: its inputs, kept to trace
+            seen["last"] = (params, cfg, tree_map(
+                lambda x: x.clone() if torch.is_tensor(x) else x, state), kw)
+        state, logits = decode_step(params, cfg, state, **kw)
+        seen["on"] &= logits.device.type == kind
+        seen["bad"] = seen["bad"] + (~torch.isfinite(logits)).sum()
+        return state, logits
+
+    argv = ["--arch", name, "--batch", str(B), "--prompt-len", str(S),
+            "--gen", str(gen), "--budget", str(budget), "--seed", str(SEED),
+            "--device", dev]
+    printed = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serving.prefill, serving.decode_step = counted_prefill, checked_decode
+    fa.LAUNCHES = da.LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(printed):
+            rec = serve.main(argv)
+    finally:
+        serving.prefill, serving.decode_step = prefill, decode_step
+    b2, b3 = seen.get("b2"), da.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    params, cfg_, state, kw = seen.pop("last")
+    kv = ss.kv_bytes(state)
+    prof = profile_ms(lambda: decode_step(params, cfg_, state, **kw), n=1)
+    del params, cfg_, state, kw
+    what = f"entry {name} budget {budget}"
+    if not (rec["device"].startswith(kind) and seen["on"]):
+        raise AssertionError(f"{what}: served on {rec['device']}")
+    if (b2, b3) != (n_attn, n_attn * gen):
+        raise AssertionError(f"{what}: B2 {b2}, B3 {b3} launches; expected "
+                             f"{n_attn} a prefill and {n_attn} a step")
+    toks = rec["tokens"]
+    if toks.shape != (gen + 1, B) or not (
+            (toks >= 0).all() and (toks < cfg.vocab).all()):
+        raise AssertionError(f"{what}: tokens {toks.shape} outside "
+                             f"[0, {cfg.vocab})")
+    if int(seen["bad"]):
+        raise AssertionError(f"{what}: {int(seen['bad'])} logits not finite")
+    row = {"arch": name, "layers": cfg.n_layers, "batch": B, "prompt": S,
+           "gen": gen, "budget": budget,
+           "printed": printed.getvalue().splitlines(),
+           "prefill_s": rec["prefill_s"], "decode_s": rec["decode_s"],
+           "ms_per_step": rec["decode_s"] * 1e3 / gen, "tok_s": rec["tok_s"],
+           "busy_share": 1 - prof["idle_share"], "step_profile": prof,
+           "peak_bytes": peak, "kv_bytes_allocated": kv,
+           "b2_launches": b2, "b3_launches": b3}
+    ks = rec["k_active"]
+    if budget:
+        if ks is None or ks.shape != (n_attn, B) or not (
+                ks.min() > 0 and ks.max() <= budget):
+            raise AssertionError(f"{what}: k_active outside (0, {budget}]: "
+                                 f"{None if ks is None else ks.tolist()}")
+        row.update(k_active_min=int(ks.min()),
+                   k_active_median=float(np.median(ks)),
+                   k_active_max=int(ks.max()))
+    elif ks is not None:
+        raise AssertionError(f"{what}: an unbounded run reports budgets")
+    row["s"] = time.perf_counter() - t0
+    return row
+
+
+def phase_entry(dev):
+    """Phase 18: ``ENTRY_RUNS`` through ``repro_torch.launch.serve.main`` on
+    the card in both regimes, then the bf16 gate (``BF16_VS_PLAIN``) with
+    its planted faults on gemma2's unbounded run."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    runs = [entry_run(dev, name, B, S, gen, budget)
+            for name, B, S, gen in ENTRY_RUNS
+            for budget in (0, ENTRY_BUDGET)]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    gate = []
+    for name, B, S, steps in BF16_VS_PLAIN:
+        t2 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], n_layers=2)
+        gate.append({"arch": name, "layers": 2, "batch": B, "prompt": S,
+                     **{regime: bf16_vs_plain(
+                         dev, cfg, B, S, steps, budget,
+                         faults=(planted_faults(cfg)
+                                 if cfg.attn_softcap and not budget
+                                 else None))
+                        for regime, budget in (("unbounded", 0),
+                                               ("bounded", ENTRY_BUDGET))},
+                     "s": time.perf_counter() - t2})
+    launches = {k: sum(r[f"{k}_launches"] for r in runs)
+                for k in ("b2", "b3")}
+    return ({"phase": "entry", "runs": runs, "entry_s": t1 - t0,
+             "bf16_vs_plain": gate, "bf16_s": time.perf_counter() - t1,
              "s": time.perf_counter() - t0}, launches)
 
 
@@ -5501,6 +5883,8 @@ def main() -> int:
     print(report_text, flush=True)
     res, arch_launches = phase_archs(dev)
     emit(res)
+    res, entry_launches = phase_entry(dev)
+    emit(res)
     emit(phase_train(dev))
     res, analysis_launches = phase_analysis(dev)
     emit(res)
@@ -5533,10 +5917,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:107",
-        # phase 6's prefills, phase 13's and phase 15's ranks'
+        # phase 6's prefills, phase 13's, phase 18's and phase 15's ranks'
         "launches": serve["unbounded"]["b2_launches"]
         + serve["bounded"]["b2_launches"] + arch_launches["b2"]
-        + mg_launches["b2"],
+        + entry_launches["b2"] + mg_launches["b2"],
         "max_abs_err": attn_err["flash"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -5544,10 +5928,11 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda", "status": "redesigned",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:136",
-        # phase 6's decode steps, phase 13's and phase 15's ranks'
+        # phase 6's decode steps, phase 13's, phase 18's and phase 15's
+        # ranks'
         "launches": serve["unbounded"]["b3_launches"]
         + serve["bounded"]["b3_launches"] + arch_launches["b3"]
-        + mg_launches["b3"],
+        + entry_launches["b3"] + mg_launches["b3"],
         "max_abs_err": attn_err["decode"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],

@@ -11,6 +11,11 @@ MoE, Mamba and xLSTM layers (recurrent layers keep O(1) state and ignore
 with ``--seed``; prompts come from numpy with the same seed.  ``--device``
 defaults to ``cuda``, where attention and MLA prefill run on kernel B2
 and attention decode on kernel B3.
+
+:func:`main` prints the reference's lines and returns what they report as
+a dict: the device, prefill and decode seconds, tok/s, every greedy token
+(``[gen + 1, batch]``) and, bounded, each attention and MLA layer's
+active budgets (``[layers, batch]``).
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ def main(argv=None):
     state, logits = prefill(params, cfg, max_len=max_len,
                             budget=args.budget, **kw)
     sync()
-    print(f"[serve] prefill {B}x{S}: {time.perf_counter() - t0:.2f}s "
+    pre_s = time.perf_counter() - t0
+    print(f"[serve] prefill {B}x{S}: {pre_s:.2f}s "
           f"(budget={args.budget or 'unbounded'}, device={dev})")
 
     tok = logits.argmax(-1)
@@ -90,7 +96,14 @@ def main(argv=None):
         print(f"[serve] DAC active budgets: min={ks.min()} "
               f"median={np.median(ks):.0f} max={ks.max()} "
               f"(pool={args.budget})")
-    print("[serve] sample tokens:", np.stack(out)[:8, 0].tolist())
+    else:
+        ks = None
+    out = np.stack(out)
+    print("[serve] sample tokens:", out[:8, 0].tolist())
+    return {"arch": cfg.name, "device": str(dev), "batch": B, "prompt": S,
+            "gen": args.gen, "budget": args.budget, "prefill_s": pre_s,
+            "decode_s": dt, "tok_s": args.gen * B / dt, "tokens": out,
+            "k_active": ks}
 
 
 if __name__ == "__main__":

@@ -235,46 +235,74 @@ def record_routes(monkeypatch):
     return rec
 
 
-@pytest.mark.parametrize("name", ["deepseek-7b", "gemma2-27b"] + MIXED)
-@pytest.mark.parametrize("budget", [0, 16])
-def test_prefill_and_decode_equal_reference(name, budget, record_margins,
-                                            record_routes):
+def _serve_equal_reference(name, budget, margins, routes):
     """Prefill a 20-token prompt, then 28 teacher-forced decode steps, every
     one past the bounded pool's 16 slots: logits, caches and recurrent
     states within 1e-4, positions, DAC control state and MoE routing bit
-    for bit after every step."""
+    for bit after every step.  An embeddings-input model (llava, musicgen)
+    takes seeded ``embeds`` ``[B, S, d]`` in the prefill and ``embed``
+    ``[B, d]`` at each step; the others take tokens."""
     rcfg, pcfg, rparams, pparams = _models(name)
     B, S, G = 2, 20, 28
-    toks = np.random.default_rng(9).integers(0, rcfg.vocab, (B, S + G))
+    rng = np.random.default_rng(9)
+    if pcfg.embeds_input:
+        xs = rng.standard_normal((B, S + G, pcfg.d_model)).astype(np.float32)
+        key, step_key = "embeds", "embed"
+    else:
+        xs = rng.integers(0, rcfg.vocab, (B, S + G))
+        key, step_key = "tokens", "token"
     rstate, rlast = ref_serve.prefill(rparams, rcfg,
-                                      tokens=jnp.asarray(toks[:, :S]),
+                                      **{key: jnp.asarray(xs[:, :S])},
                                       max_len=S + G, budget=budget)
-    pstate, plast = prefill(pparams, pcfg, tokens=torch.from_numpy(
-        toks[:, :S]), max_len=S + G, budget=budget)
+    pstate, plast = prefill(pparams, pcfg,
+                            **{key: torch.from_numpy(xs[:, :S])},
+                            max_len=S + G, budget=budget)
     np.testing.assert_allclose(plast.numpy(), np.asarray(rlast), atol=TOL,
                                rtol=0)
     _assert_state_close(pstate, rstate, pcfg, "prefill")
-    step = jax.jit(lambda p, s, t: ref_serve.decode_step(p, rcfg, s,
-                                                         token=t))
+    step = jax.jit(lambda p, s, x: ref_serve.decode_step(
+        p, rcfg, s, **{step_key: x}))
     for t in range(S, S + G):
-        rstate, rlog = step(rparams, rstate, jnp.asarray(toks[:, t]))
+        rstate, rlog = step(rparams, rstate, jnp.asarray(xs[:, t]))
         pstate, plog = decode_step(pparams, pcfg, pstate,
-                                   token=torch.from_numpy(toks[:, t]))
+                                   **{step_key: torch.from_numpy(xs[:, t])})
         np.testing.assert_allclose(plog.numpy(), np.asarray(rlog),
                                    atol=TOL, rtol=0, err_msg=f"step {t}")
         _assert_state_close(pstate, rstate, pcfg, f"step {t}")
     jax.effects_barrier()
     n_pooled = sum(s.kind in ("attn", "mla") for s in pcfg.layer_specs())
     if budget and n_pooled:
-        assert len(record_margins) >= G * B * n_pooled
-        assert min(record_margins) > MARGIN
+        assert len(margins) >= G * B * n_pooled
+        assert min(margins) > MARGIN
     n_moe = sum(bool(s.moe and pcfg.moe) for s in pcfg.layer_specs())
-    routes = record_routes
     assert len(routes["port"]) == len(routes["ref"]) == n_moe * (1 + G)
     for t, (a, b) in enumerate(zip(routes["port"], routes["ref"])):
         np.testing.assert_array_equal(a, b, err_msg=f"routing call {t}")
     if n_moe:
         assert min(routes["gap"]) > MARGIN
+
+
+@pytest.mark.parametrize("name", ["deepseek-7b", "gemma2-27b",
+                                  "codeqwen1.5-7b", "qwen1.5-110b"] + MIXED)
+@pytest.mark.parametrize("budget", [0, 16])
+def test_prefill_and_decode_equal_reference(name, budget, record_margins,
+                                            record_routes):
+    """Token-input models: :func:`_serve_equal_reference` (windowed and
+    softcapped gemma2, MHA with QKV bias (codeqwen), GQA 64/8 with QKV
+    bias (qwen), MLA, MoE, Mamba, xLSTM)."""
+    _serve_equal_reference(name, budget, record_margins, record_routes)
+
+
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
+                                  "musicgen-medium"])
+@pytest.mark.parametrize("budget", [0, 16])
+def test_prefill_and_decode_from_embeddings_equal_reference(
+        name, budget, record_margins, record_routes):
+    """Embeddings-input models: ``prefill(embeds=)`` and
+    ``decode_step(embed=)`` against the reference's, as
+    :func:`_serve_equal_reference` holds them."""
+    assert PORT_SMOKE[name].embeds_input
+    _serve_equal_reference(name, budget, record_margins, record_routes)
 
 
 def test_decode_from_reference_state_equals_reference():
